@@ -1,9 +1,9 @@
-"""DGP model and its prediction path (port of dgps_with_iwvi_tpu/models/dgp.py).
+"""DGP model, objectives and prediction (port of dgps_with_iwvi_tpu/models/dgp.py).
 
-This slice ports what serving runs: ``DGPConfig``, ``init_dgp``,
-``prefactor_gp_layers``, ``propagate`` and the prediction functions, of
-which ``predict_y_and_log_density`` is the live scoring call. The
-objectives (``elbo``, ``gp_kls``) come with the training slice.
+``DGPConfig``, ``init_dgp``, ``prefactor_gp_layers``, ``propagate``, the
+objectives ``gp_kls`` and ``elbo`` ('vi' and 'iw', l.245-296) and the
+prediction functions, of which ``predict_y_and_log_density`` is the live
+scoring call. Hyperparameter priors wait for ROADMAP queue 7.
 
 Noise: the reference keys layer i with ``fold_in(key, i)``. Here every
 sample site takes either the caller's noise (``eps[i]`` for layer i: w of
@@ -20,9 +20,10 @@ from typing import Sequence
 import torch
 
 from ..ops import likelihoods, linalg
+from ..ops.precision import Numerics
 from .layers import (GPLayerConfig, LatentVarMode, LVLayerConfig,
-                     gp_layer_init, gp_layer_propagate, layer_Kuu,
-                     lv_layer_init, lv_layer_propagate)
+                     gp_layer_init, gp_layer_kl, gp_layer_propagate,
+                     layer_Kuu, lv_layer_init, lv_layer_propagate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,7 @@ class DGPConfig:
     jitter_tries: int = 4
     var_precision: str = "default"
     solve_precision: str = "high"
+    priors: tuple = ()          # hyperparameter priors: ROADMAP queue 7
 
     def __post_init__(self):
         if self.objective not in ("vi", "iw"):
@@ -99,29 +101,43 @@ def prefactor_gp_layers(params, config: DGPConfig) -> dict:
     return out
 
 
+def numerics_of(config: DGPConfig) -> Numerics:
+    """The precision set a config names (solve backward at the solve
+    class, the gram residual by size)."""
+    return Numerics(var=config.var_precision, solve=config.solve_precision)
+
+
 def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
               lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
+              Y: torch.Tensor | None = None,
+              data_idx: torch.Tensor | None = None,
               eps: Sequence | None = None,
               generator: torch.Generator | None = None,
-              inference: bool = False):
+              factors: dict | None = None,
+              numerics: Numerics | None = None):
     """Thread samples through the layer stack.
 
     Returns (fmean, fvar, log_w, local_kl): fmean/fvar [*lead, B, d_y] the
     final layer's moments, log_w [*lead, B], local_kl [B].
-    eps: per-layer noise (None entries draw from ``generator``)."""
+    eps: per-layer noise (None entries draw from ``generator``). Y and
+    data_idx feed the POSTERIOR latent mode. factors: a
+    prefactor_gp_layers result to share; computed here when None."""
     B = X.shape[0]
+    numerics = numerics_of(config) if numerics is None else numerics
     F = torch.broadcast_to(X, tuple(lead) + X.shape)
     log_w = torch.zeros(tuple(lead) + (B,), dtype=X.dtype, device=X.device)
     local_kl = torch.zeros((B,), dtype=X.dtype, device=X.device)
-    factors = prefactor_gp_layers(params, config)
+    if factors is None:
+        factors = prefactor_gp_layers(params, config)
     final_out, lv_idx = None, 0
     for i, cfg in enumerate(config.layers):
         eps_i = None if eps is None else eps[i]
         if isinstance(cfg, LVLayerConfig):
             w_given = None if ws_given is None else ws_given[lv_idx]
             F, lw_i, kl_i = lv_layer_propagate(
-                params["layers"][i], cfg, F, mode=lv_mode, w_given=w_given,
-                eps=eps_i, generator=generator)
+                params["layers"][i], cfg, F, mode=lv_mode, X0=X, Y=Y,
+                w_given=w_given, data_idx=data_idx, eps=eps_i,
+                generator=generator)
             log_w = log_w + lw_i
             local_kl = local_kl + kl_i
             lv_idx += 1
@@ -130,13 +146,48 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
             F, moments = gp_layer_propagate(
                 params["layers"][i], cfg, F, eps=eps_i, generator=generator,
                 jitter=config.jitter, jitter_tries=config.jitter_tries,
-                var_precision=config.var_precision,
-                solve_precision=config.solve_precision, Lm=Lm, Linv=Linv,
-                inference=inference)
+                numerics=numerics, Lm=Lm, Linv=Linv)
             if cfg.final:
                 final_out = moments
     fmean, fvar = final_out
     return fmean, fvar, log_w, local_kl
+
+
+def gp_kls(params, config: DGPConfig) -> torch.Tensor:
+    """Sum of the global whitened KL(q(u) || p(u)) over GP layers."""
+    return sum(gp_layer_kl(params["layers"][i], cfg)
+               for i, cfg in enumerate(config.layers)
+               if isinstance(cfg, GPLayerConfig))
+
+
+def elbo(params, config: DGPConfig, X: torch.Tensor, Y: torch.Tensor,
+         generator: torch.Generator | None = None, *,
+         eps: Sequence | None = None, data_idx: torch.Tensor | None = None,
+         numerics: Numerics | None = None) -> torch.Tensor:
+    """The training objective (maximize), 'vi' or 'iw' per config.
+
+    vi: (N/B) sum_B [mean_S ve - local_kl] - sum KL;
+    iw: (N/B) sum_B [logsumexp_K(ve + log_w) - log K] - sum KL.
+    eps: per-layer noise as in ``propagate``; data_idx: the minibatch's
+    dataset rows (non-amortized latent layers); numerics: the precision
+    set (default: the config's)."""
+    if config.priors:
+        raise NotImplementedError(
+            "hyperparameter priors are not ported yet (ROADMAP queue 7)")
+    scale = config.num_data / X.shape[0]
+    lead = (config.num_samples if config.objective == "vi"
+            else config.num_iw_samples,)
+    fmean, fvar, log_w, local_kl = propagate(
+        params, config, X, lead, lv_mode=LatentVarMode.POSTERIOR, Y=Y,
+        data_idx=data_idx, eps=eps, generator=generator, numerics=numerics)
+    ve = likelihoods.dispatch_variational_expectations(
+        params["likelihood"], fmean, fvar, Y, kind=config.likelihood)
+    if config.objective == "vi":
+        datafit = torch.sum(torch.mean(ve, dim=0) - local_kl)
+    else:
+        datafit = torch.sum(torch.logsumexp(ve + log_w, dim=0)
+                            - math.log(float(lead[0])))
+    return scale * datafit - gp_kls(params, config)
 
 
 def predict_f(params, config: DGPConfig, X: torch.Tensor,
@@ -144,13 +195,11 @@ def predict_f(params, config: DGPConfig, X: torch.Tensor,
               num_samples: int | None = None, *,
               lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
               eps: Sequence | None = None):
-    """S propagated samples of the final-layer moments: [S, B, d_y] x2.
-
-    An inference call: the conditional epilogue takes the K2 kernel."""
+    """S propagated samples of the final-layer moments: [S, B, d_y] x2."""
     S = num_samples or config.num_samples
     fmean, fvar, _, _ = propagate(
         params, config, X, (S,), lv_mode=lv_mode, ws_given=ws_given,
-        eps=eps, generator=generator, inference=True)
+        eps=eps, generator=generator)
     return fmean, fvar
 
 

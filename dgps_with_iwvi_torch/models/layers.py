@@ -5,6 +5,11 @@ A layer is a static dataclass config plus a plain dict of tensors. Leading
 sample axes (S prediction samples) broadcast through every layer as batch
 axes. Every random draw takes either the caller's noise (``eps``) or an
 explicit ``torch.Generator``; tests inject the reference's own draws.
+
+Training merges natural-gradient blocks in covariance form: a GP layer's
+params then carry ``q_cov`` [D, M, M] (with the carried ``q_cov_logdet``
+and ``q_cov_Sinv``) or ``q_cov_diag`` [M, D] in place of ``q_sqrt``
+(``training/natgrad.py``).
 """
 
 from __future__ import annotations
@@ -13,15 +18,16 @@ import dataclasses
 
 import torch
 
-from ..ops import conditionals, kernels, mean_functions
+from ..ops import conditionals, kernels, kl, mean_functions
 from ..ops.linalg import DEFAULT_JITTER
+from ..ops.precision import Numerics
 from . import encoders
 
 
 class LatentVarMode:
     """Where latent-variable layers get w from.
 
-    POSTERIOR: amortized q(w | x, y) — training (later slice).
+    POSTERIOR: q(w | x, y), amortized or per data point — training.
     PRIOR:     w ~ N(0, I) — prediction.
     GIVEN:     externally fixed w — latent traversals / plotting.
     """
@@ -147,28 +153,33 @@ def gp_layer_propagate(
     generator: torch.Generator | None = None,
     jitter: float = DEFAULT_JITTER,
     jitter_tries: int = 4,
-    var_precision: str | None = None,
-    solve_precision: str | None = None,
+    numerics: Numerics = Numerics(),
     Lm: torch.Tensor | None = None,
     Linv: torch.Tensor | None = None,
-    inference: bool = False,
 ):
     """One whitened-SVGP layer step.
 
     Non-final: (reparameterized sample [..., B, d_out], (mean, var)), the
     sample noise from ``eps`` or ``generator``. Final: (None, (mean, var)).
     """
-    q_sqrt = params["q_sqrt"] if cfg.q_diag else torch.tril(params["q_sqrt"])
+    q_cov = params.get("q_cov", params.get("q_cov_diag"))
+    if q_cov is not None:
+        q_sqrt = None
+    else:
+        q_sqrt = (params["q_sqrt"] if cfg.q_diag
+                  else torch.tril(params["q_sqrt"]))
     out = conditionals.conditional(
         F, params["Z"], params["kernel"], params["q_mu"], q_sqrt,
         kernel_kind=cfg.kernel_kind, jitter=jitter, jitter_tries=jitter_tries,
-        white=cfg.white, var_precision=var_precision,
-        solve_precision=solve_precision, Lm=Lm, Linv=Linv,
-        inference=inference)
+        white=cfg.white, var_precision=numerics.var,
+        solve_precision=numerics.solve,
+        solve_bwd_precision=numerics.solve_bwd,
+        kuf_residual=numerics.kuf_residual, Lm=Lm, Linv=Linv, q_S=q_cov)
     mf_kind = resolved_mean_function(cfg)
     if mf_kind == "skip":
+        W = params.get("mean_W")  # fixed: no gradient, as in the reference
         mean = out.mean + mean_functions.apply_mean_function(
-            F, params.get("mean_W"))
+            F, None if W is None else W.detach())
     elif mf_kind == "linear":
         mean = (out.mean + mean_functions.linear_mean(F, params["mean_W"])
                 + params["mean_b"])
@@ -182,20 +193,46 @@ def gp_layer_propagate(
     return mean + conditionals.safe_sqrt(out.var) * noise, (mean, out.var)
 
 
+def gp_layer_kl(params, cfg: GPLayerConfig) -> torch.Tensor:
+    """Global KL(q(u) || p(u)) of one whitened GP layer (reference
+    ``layers.py:286-315``; the non-whitened KL waits for ROADMAP queue 7)."""
+    if not cfg.white:
+        raise NotImplementedError(
+            "the non-whitened KL is not ported yet (ROADMAP queue 7)")
+    if cfg.q_diag:
+        if "q_cov_diag" in params:
+            return kl.gauss_kl_white_diagvar(params["q_mu"],
+                                             params["q_cov_diag"])
+        return kl.gauss_kl_white_diag(params["q_mu"], params["q_sqrt"])
+    if "q_cov" in params:
+        return kl.gauss_kl_white_cov(params["q_mu"], params["q_cov"],
+                                     params["q_cov_logdet"],
+                                     params["q_cov_Sinv"])
+    return kl.gauss_kl_white(params["q_mu"], torch.tril(params["q_sqrt"]))
+
+
 def lv_layer_propagate(
     params,
     cfg: LVLayerConfig,
     F: torch.Tensor,                 # [..., B, d_in]
     *,
     mode: str = LatentVarMode.PRIOR,
+    X0: torch.Tensor | None = None,
+    Y: torch.Tensor | None = None,
     w_given: torch.Tensor | None = None,
+    data_idx: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ):
-    """Concatenate a latent w onto the features: (F_aug, log_w, local_kl),
-    log_w [..., B] and local_kl [B] zero in the PRIOR and GIVEN modes."""
+    """Concatenate a latent w onto the features: (F_aug, log_w, local_kl).
+
+    POSTERIOR: w = mu + exp(log_var / 2) eps from the encoder on
+    concat[X0, Y] (amortized) or the rows ``data_idx`` of the per-point
+    parameters; log_w [..., B] = log p(w) - log q(w|x,y) and local_kl [B]
+    the analytic KL. PRIOR and GIVEN: both zero."""
     lead, B = F.shape[:-2], F.shape[-2]
     kw = dict(dtype=F.dtype, device=F.device)
+    log_w, local_kl = torch.zeros(lead + (B,), **kw), torch.zeros((B,), **kw)
     if mode == LatentVarMode.PRIOR:
         w = _normal(lead + (B, cfg.d_w), F, eps, generator)
     elif mode == LatentVarMode.GIVEN:
@@ -203,10 +240,22 @@ def lv_layer_propagate(
             raise ValueError("GIVEN mode needs w_given")
         w = torch.broadcast_to(w_given.to(**kw), lead + (B, cfg.d_w))
     elif mode == LatentVarMode.POSTERIOR:
-        raise NotImplementedError(
-            "the POSTERIOR latent mode comes with the training slice "
-            "(ROADMAP queue 1)")
+        if cfg.amortized:
+            if X0 is None or Y is None:
+                raise ValueError("POSTERIOR mode needs (X0, Y)")
+            mu, log_var = encoders.encode(params["encoder"],
+                                          torch.cat([X0, Y], dim=-1))
+        else:
+            if data_idx is None:
+                raise ValueError("a non-amortized POSTERIOR needs data_idx")
+            mu = params["q_mu_w"][data_idx]
+            log_var = params["q_logvar_w"][data_idx]
+        w = mu + torch.exp(0.5 * log_var) * _normal(lead + (B, cfg.d_w), F,
+                                                    eps, generator)
+        log_w = (kl.std_gaussian_logpdf(w)
+                 - kl.diag_gaussian_logpdf(w, mu, log_var))
+        local_kl = kl.gauss_kl_diag_white(mu, log_var)
     else:
         raise ValueError(f"unknown LatentVarMode {mode!r}")
     F_aug = torch.cat([torch.broadcast_to(F, lead + F.shape[-2:]), w], dim=-1)
-    return F_aug, torch.zeros(lead + (B,), **kw), torch.zeros((B,), **kw)
+    return F_aug, log_w, local_kl

@@ -11,7 +11,10 @@ one is never loaded. Libraries are loaded with ``ctypes``.
 cold start costs one compile, not the sum. ``launches()`` counts, per
 kernel, the launches its wrapper made: a wrapper adds one where it
 launches and nowhere else, so a caller can show that a run went through
-the kernel (``reset_launches`` / ``launches``).
+the kernel (``reset_launches`` / ``launches``). A wrapper that launches
+one variant of a kernel (the epilogue with or without its mean, say) also
+names the variant, counted under ``"<kernel>:<variant>"`` by
+``variant_launches``.
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-KERNELS = ("chol_inv", "epilogue")
+KERNELS = ("chol_inv", "epilogue", "epilogue_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _launches = {name: 0 for name in KERNELS}
+_variant_launches: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -63,6 +67,7 @@ def use_plain(t) -> bool:
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+    _variant_launches.clear()
 
 
 def launches() -> dict:
@@ -70,8 +75,16 @@ def launches() -> dict:
     return dict(_launches)
 
 
-def count_launch(name: str) -> None:
+def variant_launches() -> dict:
+    """{"<kernel>:<variant>": launches since the last reset_launches()}."""
+    return dict(_variant_launches)
+
+
+def count_launch(name: str, variant: str | None = None) -> None:
     _launches[name] += 1
+    if variant is not None:
+        key = f"{name}:{variant}"
+        _variant_launches[key] = _variant_launches.get(key, 0) + 1
 
 
 def _nvcc() -> str:

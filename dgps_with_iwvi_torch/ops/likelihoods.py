@@ -1,8 +1,9 @@
 """Gaussian likelihood (port of dgps_with_iwvi_tpu/ops/likelihoods.py:35-74).
 
-The serving path needs the predictive moments and the predictive density;
-the dispatch functions mirror ``likelihoods.py:813-826`` for ``gaussian``
-only. The other families wait for ROADMAP queue 8.
+Serving needs the predictive moments and density, training the analytic
+variational expectations; the dispatch functions mirror
+``likelihoods.py:808-826`` for ``gaussian`` only. The other families wait
+for ROADMAP queue 8.
 """
 
 from __future__ import annotations
@@ -42,6 +43,24 @@ def noise_variance(params: LikelihoodParams) -> torch.Tensor:
     return positive(params["raw_noise_variance"])
 
 
+def variational_expectations(params: LikelihoodParams, mean: torch.Tensor,
+                             var: torch.Tensor,
+                             y: torch.Tensor) -> torch.Tensor:
+    """E_{N(f|mean,var)}[log N(y | f, s2)], summed over the last axis."""
+    s2 = noise_variance(params)
+    per_dim = -0.5 * (_LOG2PI + torch.log(s2)
+                      + (torch.square(y - mean) + var) / s2)
+    return torch.sum(per_dim, dim=-1)
+
+
+def log_prob(params: LikelihoodParams, f: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """log N(y | f, s2), summed over the last axis."""
+    s2 = noise_variance(params)
+    per_dim = -0.5 * (_LOG2PI + torch.log(s2) + torch.square(y - f) / s2)
+    return torch.sum(per_dim, dim=-1)
+
+
 def predict_mean_and_var(params: LikelihoodParams, fmean: torch.Tensor,
                          fvar: torch.Tensor):
     return fmean, fvar + noise_variance(params)
@@ -53,6 +72,12 @@ def predict_density(params: LikelihoodParams, fmean: torch.Tensor,
     v = fvar + noise_variance(params)
     per_dim = -0.5 * (_LOG2PI + torch.log(v) + torch.square(y - fmean) / v)
     return torch.sum(per_dim, dim=-1)
+
+
+def dispatch_variational_expectations(params, mean, var, y, *,
+                                      kind: str = "gaussian") -> torch.Tensor:
+    _check_kind(kind)
+    return variational_expectations(params, mean, var, y)
 
 
 def dispatch_predict_mean_and_var(params, fmean, fvar, *,

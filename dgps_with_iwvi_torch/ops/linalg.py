@@ -9,14 +9,17 @@ port factors all levels at once, in one launch of the K1 kernel on the
 card (``ops/hopper/chol.py``), and selects per matrix. The values are the
 same, fast path and rescue alike, and no host sync is needed to decide.
 
-Forward only: the matmul-only backward of ``chol_and_inverse``
-(``linalg.py:234-257``) comes with the training slice.
+``chol_and_inverse`` is a ``torch.autograd.Function`` whose backward is
+the reference's matmul-only pullback at ``highest`` (``linalg.py:234-257``),
+evaluated at the selected ladder level: the forward already produced
+Linv, so no triangular solve runs backward.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import precision
 from .hopper import chol as chol_kernel
 
 DEFAULT_JITTER = 1e-6
@@ -66,13 +69,40 @@ def _select_jitter(K: torch.Tensor, jitter: float,
     return jitters[_first_ok_level(L_all)]
 
 
+def _mm(a, b):
+    return precision.matmul(a, b, "highest")
+
+
+class CholAndInverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, jitter, max_tries):
+        jitters = _jitter_ladder(jitter, max_tries, K.dtype, K.device)
+        L_all, Linv_all = chol_kernel.chol_inv(K, jitters)
+        level = _first_ok_level(L_all)
+        L, Linv = _pick(L_all, level), _pick(Linv_all, level)
+        ctx.save_for_backward(L, Linv)
+        return L, Linv
+
+    @staticmethod
+    def backward(ctx, L_bar, Linv_bar):
+        L, Linv = ctx.saved_tensors
+        LinvT = Linv.transpose(-1, -2)
+        # pullback of Linv = L^-1: <Linv_bar, -Linv dL Linv>
+        L_bar = torch.tril(L_bar) - torch.tril(
+            _mm(LinvT, _mm(Linv_bar, LinvT)))
+        # the Cholesky pullback at L, with the solves replaced by Linv
+        M = _mm(L.transpose(-1, -2), L_bar)
+        eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+        phi = torch.tril(M) - 0.5 * M * eye
+        K_bar = _mm(LinvT, _mm(phi, Linv))
+        return 0.5 * (K_bar + K_bar.transpose(-1, -2)), None, None
+
+
 def chol_and_inverse(K: torch.Tensor, jitter: float = DEFAULT_JITTER,
                      max_tries: int = 4):
-    """(L, L^-1) of K + jitter*I with the escalation ladder; K [..., M, M]."""
-    jitters = _jitter_ladder(jitter, max_tries, K.dtype, K.device)
-    L_all, Linv_all = chol_kernel.chol_inv(K, jitters)
-    level = _first_ok_level(L_all)
-    return _pick(L_all, level), _pick(Linv_all, level)
+    """(L, L^-1) of K + jitter*I with the escalation ladder; K [..., M, M].
+    Differentiable in K (matmul-only backward)."""
+    return CholAndInverse.apply(K, jitter, max_tries)
 
 
 def cholesky_with_jitter(K: torch.Tensor, jitter: float = DEFAULT_JITTER,
@@ -96,3 +126,15 @@ def solve_triangular(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
         Xw = torch.linalg.solve_triangular(L, Bw, upper=not lower)
         return torch.movedim(Xw.reshape((m,) + batch + (n,)), 0, -2)
     return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) X = B given the lower Cholesky factor L."""
+    y = solve_triangular(L, B, lower=True)
+    return solve_triangular(L, y, lower=True, trans=True)
+
+
+def log_det_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log det(L L^T) = 2 sum(log diag L), batched."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                           dim=-1)

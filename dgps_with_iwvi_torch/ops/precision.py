@@ -19,15 +19,41 @@ them; the f64 parity tests rely on that.
 CUDA the bf16 products go through ``torch.bmm(..., out_dtype=float32)``;
 on the CPU (which has no such overload) through an f32 matmul of the
 bf16-rounded values, whose products are exact in f32.
+
+Gradients: autograd through the bf16 casts would give cotangent dots of
+the wrong class, so a classed matmul that needs a gradient goes through
+``ClassedMatmul``, whose two transposed dots run at a stated class (the
+reference's ``matmul_split_precision``, ``conditionals.py:73-116``).
+
+``Numerics`` is the precision set one objective runs at, passed down
+explicitly from the trainer (the reference swaps module switches around
+the loss instead, ``training/train.py:106-135``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
 CLASSES = ("default", "high", "highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class Numerics:
+    """Precision set of one objective evaluation.
+
+    var: class of the q-variance dots; solve: class of A = Linv Kuf and
+    the mean; solve_bwd: class of the solve path's transposed dots (None:
+    the solve class, the reference's "same"); kuf_residual: whether the
+    cross gram may keep its output as the backward residual
+    (``ops/kernels.py`` size rule; off on the full-batch escalation)."""
+
+    var: str | None = "default"
+    solve: str | None = "high"
+    solve_bwd: str | None = None
+    kuf_residual: bool = True
 
 
 def check_tf32_off() -> None:
@@ -77,9 +103,62 @@ def _f32_reductions():
         flags.allow_bf16_reduced_precision_reduction = saved
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor,
-           precision: str | None = None) -> torch.Tensor:
-    """x @ y at a named precision class (see module docstring)."""
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and back (float64 passes through exactly, as
+    every class does)."""
+    if x.dtype == torch.float64:
+        return x
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def reduce_to_shape(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum g over the axes along which an operand of `shape` broadcast."""
+    extra = g.ndim - len(shape)
+    if extra > 0:
+        g = torch.sum(g, dim=tuple(range(extra)))
+    axes = tuple(i for i, (gs, s) in enumerate(zip(g.shape, shape))
+                 if s == 1 and gs != 1)
+    if axes:
+        g = torch.sum(g, dim=axes, keepdim=True)
+    return g
+
+
+class ClassedMatmul(torch.autograd.Function):
+    """x @ y at class `fwd`; the cotangent dots g y^T and x^T g at `bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, y, fwd, bwd):
+        ctx.save_for_backward(x, y)
+        ctx.bwd = bwd
+        return _matmul(x, y, fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = reduce_to_shape(_matmul(g, y.transpose(-1, -2), ctx.bwd),
+                                 x.shape)
+        if ctx.needs_input_grad[1]:
+            dy = reduce_to_shape(_matmul(x.transpose(-1, -2), g, ctx.bwd),
+                                 y.shape).to(y.dtype)
+        return dx, dy, None, None
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor, precision: str | None = None,
+           bwd_precision: str | None = None) -> torch.Tensor:
+    """x @ y at a named precision class (see module docstring); where a
+    gradient is needed, its dots run at `bwd_precision` (default: the
+    forward's class)."""
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return ClassedMatmul.apply(
+            x, y, precision, precision if bwd_precision is None
+            else bwd_precision)
+    return _matmul(x, y, precision)
+
+
+def _matmul(x: torch.Tensor, y: torch.Tensor,
+            precision: str | None) -> torch.Tensor:
     if precision is None or precision == "highest" \
             or x.dtype == torch.float64:
         if x.is_cuda and x.dtype == torch.float32:

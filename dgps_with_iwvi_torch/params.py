@@ -6,7 +6,8 @@ port's are the same tree of ``torch.Tensor``s under the same keys
 ``.mean_W``, ``.encoder...``, ``likelihood.raw_noise_variance``). Pass
 the reference tree through ``numpy`` (``np.asarray`` per leaf, or
 ``jax.device_get``) and this module converts it; nothing here imports
-the reference.
+the reference. A training state's values go the same way
+(``state_to_numpy`` / ``state_from_numpy``).
 """
 
 from __future__ import annotations
@@ -54,3 +55,31 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+def state_to_numpy(state) -> dict:
+    """A training state's values, {"rest": tree, "natvars": list}, as
+    numpy arrays (the layout of the reference's ``TrainState`` fields)."""
+    return {"rest": params_to_numpy(state.rest),
+            "natvars": params_to_numpy(state.natvars)}
+
+
+def state_from_numpy(state, arrays: dict):
+    """Copy `arrays` (as ``state_to_numpy`` returns them, or the
+    reference's ``TrainState`` fields through numpy) into the state's
+    tensors in place; returns the state. The optimizer's moments are not
+    touched."""
+    def copy(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                copy(dst[k], src[k])
+        elif isinstance(dst, (list, tuple)):
+            for d, s in zip(dst, src):
+                copy(d, s)
+        else:
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(np.array(src, copy=True)))
+
+    copy(state.rest, arrays["rest"])
+    copy(state.natvars, arrays["natvars"])
+    return state

@@ -6,9 +6,10 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: both sides multiply the same bf16-rounded operands into f32
-(K2) or run plain f32 (K1), so they differ by the order of f32 sums only:
-1e-4 of the largest plain value for the q-variance and the mean, 1e-5 for
-the sum of squares; the Cholesky bounds of tests/test_pallas_chol.py.
+(K2, K3) or run plain f32 (K1), so they differ by the order of f32 sums
+only: 1e-4 of the largest plain value for the q-variance, the mean and
+every gradient of K3, 1e-5 for the sum of squares; the Cholesky bounds of
+tests/test_pallas_chol.py.
 """
 
 import math
@@ -124,9 +125,78 @@ def test_serving_path_runs_the_kernels(gen, m):
 
     build.reset_launches()
     (m, v), ld = run()
-    assert build.launches() == {"chol_inv": 1, "epilogue": 2}
+    assert build.launches() == {"chol_inv": 1, "epilogue": 2,
+                                "epilogue_bwd": 0}
     with build.plain_versions():
         (mp, vp), ldp = run()
-    assert build.launches() == {"chol_inv": 1, "epilogue": 2}
+    assert build.launches() == {"chol_inv": 1, "epilogue": 2,
+                                "epilogue_bwd": 0}
     for a, b in ((m, mp), (v, vp), (ld, ldp)):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def _bwd_inputs(gen, L, m, n, d, cov):
+    A = torch.randn((L, m, n), generator=gen, device="cuda") / math.sqrt(m)
+    W = 0.1 * torch.tril(torch.randn((d, m, m), generator=gen,
+                                     device="cuda")) + torch.eye(m,
+                                                                 device="cuda")
+    if cov:
+        W = W @ W.transpose(-1, -2)
+    q_mu = torch.randn((m, d), generator=gen, device="cuda")
+    g_qv, g_mn = (torch.randn((L, d, n), generator=gen, device="cuda")
+                  for _ in range(2))
+    g_ss = torch.randn((L, n), generator=gen, device="cuda")
+    return A, W, q_mu, g_qv, g_ss, g_mn
+
+
+def _bwd_call(form, A, W, q_mu, g_qv, g_ss, g_mn, cov, plain):
+    if form == "epi":
+        f = qvar.epi_bwd_plain if plain else qvar.epi_bwd_fused
+        return f(A, W, q_mu, g_qv, g_ss, g_mn, cov)
+    if form == "ps":
+        f = qvar.ps_bwd_plain if plain else qvar.ps_bwd_fused
+        return f(A, W, g_qv, g_ss, cov)
+    f = qvar.qvar_bwd_plain if plain else qvar.qvar_bwd_fused
+    return f(A, W, g_qv, cov)
+
+
+# M is worked through in chunks of 128 rows; N=1000 leaves a ragged tile
+@pytest.mark.parametrize("m", [128, 100, 20, 200])
+@pytest.mark.parametrize("form,d,cov", [("epi", 8, False), ("epi", 1, True),
+                                        ("ps", 8, False), ("ps", 3, True),
+                                        ("qvar", 8, False),
+                                        ("qvar", 1, True)])
+def test_epilogue_bwd_kernel_matches_plain(gen, m, form, d, cov):
+    args = _bwd_inputs(gen, 3, m, 1000, d, cov)
+    got = _bwd_call(form, *args, cov, plain=False)
+    ref = _bwd_call(form, *args, cov, plain=True)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("cov", [False, True])
+def test_epilogue_bwd_kernel_is_deterministic(gen, cov):
+    """dW and dq_mu sum over the whole grid without atomics: two launches
+    on the same inputs are bitwise equal."""
+    args = _bwd_inputs(gen, 20, 128, 512, 8, cov)
+    a = qvar.epi_bwd_fused(*args, cov)
+    b = qvar.epi_bwd_fused(*args, cov)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_training_functions_launch_k2_and_k3(gen):
+    A, W, q_mu, g_qv, g_ss, g_mn = _bwd_inputs(gen, 2, 128, 256, 8, False)
+    A.requires_grad_()
+    W.requires_grad_()
+    build.reset_launches()
+    qv, ss, mn = qvar.EpiFusedTrain.apply(A, W, q_mu, False)
+    torch.autograd.grad((qv * g_qv).sum() + (ss * g_ss).sum()
+                        + (mn * g_mn).sum(), (A, W))
+    assert build.launches() == {"chol_inv": 0, "epilogue": 1,
+                                "epilogue_bwd": 1}
+    assert build.variant_launches() == {"epilogue:epi": 1,
+                                        "epilogue_bwd:epi": 1}

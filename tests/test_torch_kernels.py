@@ -5,9 +5,11 @@ The port's wrappers take their plain PyTorch versions for CPU tensors;
 those are what these tests hold to the Pallas kernels, at the tolerances
 of ``tests/test_pallas_epilogue.py``: the q-variance to the bf16 rounding
 class (atol 2e-2 * max|qv|), the sum of squares near-exactly (rtol 1e-5)
-and the mean to f32 (rtol 1e-4). The hand-written CUDA kernels are held to
-the plain versions on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+and the mean to f32 (rtol 1e-4). The backwards (K3's plain versions) round
+the same operands as the Pallas backward kernels, so they differ by the
+order of f32 sums only: measured 4e-7 of the largest value, held at 1e-5.
+The hand-written CUDA kernels are held to the plain versions on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ import jax.numpy as jnp
 
 from dgps_with_iwvi_tpu.ops import conditionals as jcond
 from dgps_with_iwvi_tpu.ops.pallas.chol import chol_inv_pallas
-from dgps_with_iwvi_tpu.ops.pallas.qvar import epi_fused, qvar_fused
+from dgps_with_iwvi_tpu.ops.pallas.qvar import (epi_bwd_fused, epi_fused,
+                                                ps_bwd_fused, ps_fused,
+                                                qvar_bwd_fused, qvar_fused)
 from dgps_with_iwvi_torch.ops import conditionals as tcond
 from dgps_with_iwvi_torch.ops import linalg as tlinalg
 from dgps_with_iwvi_torch.ops.hopper import build
@@ -71,6 +75,73 @@ def test_plain_qvar_matches_pallas(cov):
 
 
 @pytest.mark.parametrize("cov", [False, True])
+def test_plain_ps_matches_pallas(cov):
+    A, L, _ = _data(seed=6)
+    W = _w(L, cov)
+    qv_r, ss_r = ps_fused(jnp.asarray(A), jnp.asarray(W), cov, True)
+    qv, ss = tqvar.ps_plain(torch.from_numpy(A), torch.from_numpy(W), cov)
+    _check_qv(qv, qv_r)
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_r), rtol=1e-5,
+                               atol=1e-4)
+
+
+def _bwd_data(seed, cov):
+    A, L, qmu = _data(seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    g_qv, g_mn = (rng.randn(3, 4, 256).astype(np.float32) for _ in range(2))
+    g_ss = rng.randn(3, 256).astype(np.float32)
+    return A, _w(L, cov).astype(np.float32), qmu, g_qv, g_ss, g_mn
+
+
+@pytest.mark.parametrize("cov", [False, True])
+@pytest.mark.parametrize("form", ["epi", "ps", "qvar"])
+def test_plain_backward_matches_pallas(form, cov):
+    A, W, qmu, g_qv, g_ss, g_mn = _bwd_data(7, cov)
+    j = [jnp.asarray(a) for a in (A, W, qmu, g_qv, g_ss, g_mn)]
+    t = [torch.from_numpy(a) for a in (A, W, qmu, g_qv, g_ss, g_mn)]
+    if form == "epi":
+        ref = epi_bwd_fused(*j, cov, True)
+        out = tqvar.epi_bwd_plain(*t, cov)
+    elif form == "ps":
+        ref = ps_bwd_fused(j[0], j[1], j[3], j[4], cov, True)
+        out = tqvar.ps_bwd_plain(t[0], t[1], t[3], t[4], cov)
+    else:
+        ref = qvar_bwd_fused(j[0], j[1], j[3], cov, True)
+        out = tqvar.qvar_bwd_plain(t[0], t[1], t[3], cov)
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        r = np.asarray(r)
+        assert o.shape == r.shape
+        np.testing.assert_allclose(o.numpy(), r, rtol=0,
+                                   atol=1e-5 * float(np.max(np.abs(r))))
+
+
+@pytest.mark.parametrize("cov", [False, True])
+def test_training_function_backward_is_the_epilogue_gradient(cov):
+    """In float64 the rounding passes through, so EpiFusedTrain's backward
+    (the plain K3 on the CPU) equals autograd of the plain forward."""
+    A, W, qmu, g_qv, g_ss, g_mn = (a.astype(np.float64)
+                                   for a in _bwd_data(8, cov))
+    At, Wt, qt = (torch.from_numpy(a).requires_grad_() for a in (A, W, qmu))
+    gs = [torch.from_numpy(a) for a in (g_qv, g_ss, g_mn)]
+
+    def grads(outs, inputs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(
+            sum(torch.sum(o * g) for o, g in zip(outs, gs)), inputs)
+
+    for fused, plain, inputs in (
+            (tqvar.EpiFusedTrain.apply(At, Wt, qt, cov),
+             tqvar.epi_plain(At, Wt, qt, cov), (At, Wt, qt)),
+            (tqvar.PsFusedTrain.apply(At, Wt, cov),
+             tqvar.ps_plain(At, Wt, cov), (At, Wt)),
+            (tqvar.QvarFusedTrain.apply(At, Wt, cov),
+             tqvar.qvar_plain(At, Wt, cov), (At, Wt))):
+        for a, b in zip(grads(fused, inputs), grads(plain, inputs)):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("cov", [False, True])
 def test_cpu_wrappers_take_the_plain_version(cov):
     A, L, qmu = _data(seed=2, N=40)
     At, Wt, qt = (torch.from_numpy(a) for a in (A, _w(L, cov), qmu))
@@ -80,14 +151,15 @@ def test_cpu_wrappers_take_the_plain_version(cov):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(tqvar.qvar_fused(At, Wt, cov),
                                tqvar.qvar_plain(At, Wt, cov), rtol=0, atol=0)
-    assert build.launches() == {"chol_inv": 0, "epilogue": 0}
+    assert build.launches() == {"chol_inv": 0, "epilogue": 0,
+                                "epilogue_bwd": 0}
 
 
 def test_epilogue_dispatch_on_inference_calls():
-    """The inference branch of base_conditional_whitened equals the
-    reference's with its epilogue kernel forced on (interpreted), in f32:
-    both round the q-variance operands to bf16 and run the mean at bf16x3,
-    so they agree to f32 rounding, far inside the bf16 class."""
+    """The fused epilogue of base_conditional_whitened equals the
+    reference's inference branch with its kernel forced on (interpreted),
+    in f32: both round the q-variance operands to bf16 and run the mean at
+    bf16x3, so they agree to f32 rounding, far inside the bf16 class."""
     rng = np.random.RandomState(3)
     m, n, d = 16, 256, 3
     K = rng.randn(m, m).astype(np.float32)
@@ -110,7 +182,7 @@ def test_epilogue_dispatch_on_inference_calls():
     out = tcond.base_conditional_whitened(
         *(torch.from_numpy(a) for a in (Kuf, Lm, Kff, q_mu, q_sqrt)),
         var_precision="default", Linv=torch.from_numpy(Linv),
-        solve_precision="high", inference=True)
+        solve_precision="high")
     for o, r in ((out.mean, ref.mean), (out.var, ref.var)):
         r = np.asarray(r)
         np.testing.assert_allclose(o.numpy(), r, rtol=1e-4,

@@ -197,7 +197,7 @@ def test_base_conditional_whitened(form, with_linv):
         Linv=j(Linv), q_S=j(q_S), solve_precision="high")
     out = tcond.base_conditional_whitened(
         t(Kuf), t(Lm), t(Kff), t(q_mu), t(q_sqrt), var_precision="default",
-        Linv=t(Linv), q_S=t(q_S), solve_precision="high", inference=True)
+        Linv=t(Linv), q_S=t(q_S), solve_precision="high")
     _close(out.mean, ref.mean, atol=1e-12)
     _close(out.var, ref.var)
 
