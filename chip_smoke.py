@@ -15,21 +15,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mean, q-variance only) at the serving shape (M=128, B=8192, S=100); K3
    (its backward, in the same three forms) at the training shapes A
    [20,128,512] and [20,128,8192], at M=100, and two launches bitwise
-   equal;
+   equal; K4 (``serve_cond``, with and without the sample) and K5
+   (``conditional``, fused and sample, with the residuals Kxz and A) at
+   the serving and training shapes, a ragged N, M=100 and M=200, K5's
+   sample element by element against the plain Philox stream, the
+   recovered noise over 8.4M draws (mean, variance, share beyond 3 within
+   5 standard errors), one seed bitwise repeatable and two seeds apart;
 4. serving: the LGG model of phase 3, built from a seed on bench.py's
    synthetic data, 8 requests of
-   B=8192 at S=100 scored through ``serving.Scorer``; the kernel launch
-   counts of that run must be positive, one batch must agree with the same
-   batch through the plain versions on the card, and a small batch with the
-   port's CPU path (the path the CPU tests hold to the JAX reference);
+   B=8192 at S=100 scored through ``serving.Scorer`` with
+   ``serve_pallas=False`` (the K2 route); the kernel launch counts of that
+   run must be positive, one batch must agree with the same batch through
+   the plain versions on the card, and a small batch with the port's CPU
+   path (the path the CPU tests hold to the JAX reference); then the same
+   requests on the default config, whose ``serve_pallas="auto"`` takes
+   K4 (2 launches and one K1 per request), and with ``use_pallas`` (one
+   K5 'sample' and one K5 'fused' per request), each against the plain
+   versions on the card;
 5. training: the flagship step (LGG, IW K=20, M=128, B=512, natgrad on
    the final layer) on synthetic data of kin8nm's shape; one step's loss
    and gradients through the kernels against the plain versions on the
    card, 200 timed steps whose K1, K2 and K3 launch counts rise by 2 each
-   per step, and 20 steps at B=8192.
+   per step, and 20 steps at B=8192; then with ``use_pallas`` (the inner
+   layer in K5 'sample'), natgrad final (per step K5 'sample', K2 and K3
+   once, K1 twice) and Adam alone (the final layer in K5 'fused' and its
+   backward), each with one step against the plain versions.
 
-Prints one ``{"kernels": [...]}`` line (launches counted on the serving
-and the training runs), then the card's name and power limit, then
+Prints one ``{"kernels": [...]}`` line (launches counted on every path
+above, by path), then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits
 non-zero without a result where CUDA is unavailable or the package is not
 beside this script. ``--out DIR`` also writes the whole record to
@@ -428,6 +441,188 @@ def epilogue_bwd_phase(torch, hopper, gen) -> tuple:
     return rows, {"m100_errs": m100, "determinism": determinism}
 
 
+FUSED_CASES = [
+    # (label, N, d_in, M, D, layer): layer names the main path's shapes
+    ("serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X, "inner"),
+    ("serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "final"),
+    ("training inner layer", 20 * 512, D_X + 1, M, D_X, "train"),
+    ("ragged N=1000", 1000, D_X + 1, M, D_X, None),
+    ("M=100", 1000, D_X + 1, 100, D_X, None),
+    ("M=200", 1000, D_X + 1, 200, D_X, None),
+]
+K4_REPLACES = "dgps_with_iwvi_tpu/ops/pallas/serve_cond.py:73"
+K5_REPLACES = {"fused": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:51",
+               "sample": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:93"}
+# K5 is true f32 on both sides: only the order of the f32 sums differs. K4
+# rounds the same operands to bf16 as its plain version, but A comes out of
+# sums in another order, and where that moves an element of A across a bf16
+# rounding boundary, bf16(A) moves by one bf16 unit and the q-variance by up
+# to 2^-8 of one of its M terms; the sample carries that through its sd.
+# The largest reading on the H100 was 8.7e-4 of max|plain| (var, serving
+# inner layer); the sample's and var's limit sits a little over twice that
+K4_TOL = {"sample": 2e-3, "mean": 1e-4, "var": 2e-3}
+K5_TOL = {"sample": 1e-5, "mean": 1e-5, "var": 1e-5, "kxz": 1e-5, "a": 1e-5}
+
+
+def _cond_inputs(torch, gen, n, m, d_in, d):
+    """Scaled xs, zs, var, Linv (of a random SPD gram), q_mu, Lq on the
+    card."""
+    xs = 0.5 * torch.randn((n, d_in), generator=gen, device="cuda")
+    zs = 0.5 * torch.randn((m, d_in), generator=gen, device="cuda")
+    var = torch.tensor(1.7, device="cuda")
+    R = torch.randn((m, m), generator=gen, device="cuda", dtype=torch.float64)
+    eye = torch.eye(m, device="cuda", dtype=torch.float64)
+    linv = (3.0 * torch.linalg.inv(torch.linalg.cholesky(R @ R.T + m * eye))
+            ).float()
+    q_mu = torch.randn((m, d), generator=gen, device="cuda")
+    lq = 0.3 * torch.tril(torch.randn((d, m, m), generator=gen, device="cuda"))
+    return xs, zs, var, linv, q_mu, lq
+
+
+def _k4_bound(n, d_in, m, d, sample):
+    """K4's least time: its inputs in and mean, var (and the sample) out;
+    2 N M (3 d_in + 3 M + 3 D) bf16 FLOP for the dot3 passes (three per
+    dot, on the dense Linv) and N M (M + 1) D for the single-pass
+    q-variance against tril(Lq)."""
+    in_f = n * d_in + m * d_in + 1 + m * m + m * d + d * m * m
+    out_f = n * d * 2
+    if sample:
+        in_f, out_f = in_f + n * d, out_f + n * d
+    return bound(bytes_moved=4 * (in_f + out_f),
+                 bf16_ops=(2 * n * m * (3 * d_in + 3 * m + 3 * d)
+                           + n * m * (m + 1) * d))
+
+
+def _k5_bound(n, d_in, m, d, sample, residuals):
+    """K5's least time: 2 N M (d_in + M + D) + N M (M + 1) D f32 FLOP (the
+    q-variance against tril(Lq)) against its inputs, mean and var (the
+    sample, Kxz and A where written)."""
+    in_f = n * d_in + m * d_in + 1 + m * m + m * d + d * m * m
+    out_f = n * d * (3 if sample else 2) + (2 * n * m if residuals else 0)
+    return bound(bytes_moved=4 * (in_f + out_f),
+                 f32_ops=2 * n * m * (d_in + m + d) + n * m * (m + 1) * d)
+
+
+def fused_phase(torch, hopper, gen) -> tuple:
+    """K4 (with and without the sample) and K5 (fused and sample, with
+    their residuals) against their plain versions at the serving and
+    training shapes, a ragged N, M=100 and M=200; K5's sample element by
+    element against the plain Philox stream; the recovered eps over 8.4M
+    draws; two launches with one seed bitwise equal, two seeds apart."""
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    k4, k5 = hopper.serve_cond, hopper.conditional
+    cases = {"serve_cond:sample": [], "serve_cond:infer": [],
+             "conditional:fused": [], "conditional:sample": []}
+    seed = torch.tensor(2 ** 40 + 12345, dtype=torch.int64, device="cuda")
+    for label, n, d_in, m, d, layer in FUSED_CASES:
+        args = _cond_inputs(torch, gen, n, m, d_in, d)
+        eps = torch.randn((n, d), generator=gen, device="cuda")
+        shape = f"xs [{n},{d_in}], M={m}, D={d}"
+
+        def k4_call(with_eps, plain=False):
+            if plain:
+                with build.plain_versions():
+                    return k4.fused_conditional_infer(*args, eps if with_eps
+                                                      else None)
+            return k4.fused_conditional_infer(*args, eps if with_eps else None)
+
+        def k5_call(s, residuals, plain=False):
+            if plain:
+                with build.plain_versions():
+                    out = k5.fused_forward(*args, s, residuals=residuals)
+            else:
+                out = k5.fused_forward(*args, s, residuals=residuals)
+            return [t for t in (out[2], out[0], out[1], out[3], out[4])
+                    if t is not None]
+
+        for name, with_eps in (("serve_cond:sample", True),
+                               ("serve_cond:infer", False)):
+            names = (("sample",) if with_eps else ()) + ("mean", "var")
+            errs, rels = _compare(torch, f"serve_cond [{label}]",
+                                  k4_call(with_eps), k4_call(with_eps, True),
+                                  names, K4_TOL)
+            case = {"case": label, "shape": shape, "errs": errs,
+                    "rels": rels, "max_abs_err": max(errs.values()),
+                    "max_rel_err": max(rels.values())}
+            if (layer == "inner") == with_eps and layer in ("inner", "final"):
+                case["ms"] = time_ms(torch, lambda: k4_call(with_eps), 10)
+                case["plain_ms"] = time_ms(torch, lambda: k4_call(with_eps,
+                                                                  True), 2, 1)
+                case["bound_ms"], case["bound_by"] = _k4_bound(n, d_in, m, d,
+                                                               with_eps)
+                cases[name].insert(0, case)
+            else:
+                cases[name].append(case)
+        for name, s in (("conditional:fused", None),
+                        ("conditional:sample", seed)):
+            names = (("sample",) if s is not None else ()) + (
+                "mean", "var", "kxz", "a")
+            errs, rels = _compare(torch, f"conditional [{label}]",
+                                  k5_call(s, True), k5_call(s, True, True),
+                                  names, K5_TOL)
+            case = {"case": label, "shape": shape, "errs": errs,
+                    "rels": rels, "max_abs_err": max(errs.values()),
+                    "max_rel_err": max(rels.values())}
+            is_main = (layer == "final") if s is None else (layer == "inner")
+            if is_main or (layer == "train" and s is not None):
+                # prediction runs without residuals; training writes them
+                res = layer == "train"
+                case["residuals"] = res
+                case["ms"] = time_ms(torch, lambda: k5_call(s, res), 5)
+                case["plain_ms"] = time_ms(torch, lambda: k5_call(s, res,
+                                                                  True), 2, 1)
+                case["bound_ms"], case["bound_by"] = _k5_bound(
+                    n, d_in, m, d, s is not None, res)
+                if is_main:
+                    case["ms_with_residuals"] = time_ms(
+                        torch, lambda: k5_call(s, True), 5)
+            if is_main:
+                cases[name].insert(0, case)
+            else:
+                cases[name].append(case)
+        del args, eps
+        torch.cuda.empty_cache()
+
+    # the in-kernel noise: recovered eps = (sample - mean) / sd
+    args = _cond_inputs(torch, gen, 1 << 20, M, D_X + 1, D_X)
+    mean, v, samp = k5.fused_forward(*args, seed, residuals=False)[:3]
+    rec_eps = ((samp - mean) / torch.sqrt(v))[v > 0].double()
+    n_draws = rec_eps.numel()
+    p3 = 2.6997961e-3
+    moments = {"draws": n_draws, "mean": float(rec_eps.mean()),
+               "var": float(rec_eps.var()),
+               "beyond_3": float((rec_eps.abs() > 3).double().mean())}
+    limits = {"mean": 5 / n_draws ** 0.5, "var": 5 * (2.0 / n_draws) ** 0.5,
+              "beyond_3": 5 * (p3 * (1 - p3) / n_draws) ** 0.5}
+    if not (n_draws >= 8_000_000
+            and abs(moments["mean"]) <= limits["mean"]
+            and abs(moments["var"] - 1.0) <= limits["var"]
+            and abs(moments["beyond_3"] - p3) <= limits["beyond_3"]):
+        fail(f"conditional:sample noise is not standard normal: {moments} "
+             f"(5 standard errors: {limits})")
+    again = k5.fused_forward(*args, seed, residuals=False)[2]
+    other = k5.fused_forward(*args, seed + 1, residuals=False)[2]
+    if not torch.equal(again, samp):
+        fail("conditional:sample: two launches with one seed differ")
+    if torch.equal(other, samp):
+        fail("conditional:sample: two seeds give the same draws")
+    checks = {"eps_moments": moments, "five_se": limits,
+              "same_seed": "bitwise equal", "other_seed": "differs"}
+    del args, samp, mean, v, rec_eps, again, other
+    torch.cuda.empty_cache()
+
+    src4 = "dgps_with_iwvi_torch/csrc/serve_cond.cu"
+    src5 = "dgps_with_iwvi_torch/csrc/conditional.cu"
+    rows = [_entry(name, src4, K4_REPLACES, cases[name],
+                   "sample 2e-3, mean 1e-4, var 2e-3 x max|plain|")
+            for name in ("serve_cond:sample", "serve_cond:infer")]
+    rows += [_entry(name, src5, K5_REPLACES[name.split(":")[1]], cases[name],
+                    "every output 1e-5 x max|plain|")
+             for name in ("conditional:fused", "conditional:sample")]
+    return rows, checks
+
+
 def synthetic(seed: int = 0):
     """bench.py's serving data: X ~ N(0, 1) [B, 8], Y = sin(X0) + 0.1 e."""
     rng = np.random.default_rng(seed)
@@ -435,6 +630,21 @@ def synthetic(seed: int = 0):
     Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((B_SERVE, 1))
          ).astype(np.float32)
     return X, Y
+
+
+def _device_rows(prof, per: int):
+    """(kernel rows, annotation rows) of a trace, each (ms per unit, calls
+    per unit, name), for events with device time. User-annotation spans
+    (record_function ranges such as ``Optimizer.step#Adam.step``) cover
+    queued work, not a kernel: they are kept apart and out of "device
+    busy"."""
+    rows, spans = [], []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+            row = (e.self_device_time_total / 1e3 / per, e.count / per, e.key)
+            (spans if getattr(e, "is_user_annotation", False)
+             else rows).append(row)
+    return rows, spans
 
 
 def profile_serve(torch, scorer, Xs, Ys, requests: int = 2) -> dict:
@@ -448,17 +658,16 @@ def profile_serve(torch, scorer, Xs, Ys, requests: int = 2) -> dict:
         scorer.score(Xs[:requests * B_SERVE], Ys[:requests * B_SERVE],
                      seed=7)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3 / requests, e.count / requests,
-             e.key) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+    rows, spans = _device_rows(prof, requests)
     busy_ms = sum(r[0] for r in rows)
     return {"requests": requests, "wall_ms_per_request": wall_ms / requests,
             "device_ms_per_request": busy_ms,
             "idle_share": 1.0 - busy_ms * requests / wall_ms,
             "kernels_ms_per_request": [
                 {"kernel": k[:200], "ms": ms, "calls": c}
-                for ms, c, k in sorted(rows, reverse=True)]}
+                for ms, c, k in sorted(rows, reverse=True)],
+            "annotations_ms_per_request": [
+                {"span": k[:200], "ms": ms} for ms, _, k in spans]}
 
 
 def served_model(torch):
@@ -494,13 +703,11 @@ def served_kuu(torch, config, params):
                         if isinstance(cfg, GPLayerConfig)])
 
 
-def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
-    from dgps_with_iwvi_torch.models import predict_y_and_log_density
-    from dgps_with_iwvi_torch.ops.hopper import build
-    from dgps_with_iwvi_torch.params import params_to_device
-    from dgps_with_iwvi_torch.serving import NormalizationStats, Scorer
+def _requests(X, Y):
+    """(Xs, Ys, stats): REQUESTS batches of B_SERVE rows like bench.py's
+    data, and the build split's normalization statistics."""
+    from dgps_with_iwvi_torch.serving import NormalizationStats
 
-    X, Y, config, params, build_s = model
     rng = np.random.default_rng(1)
     n = REQUESTS * B_SERVE
     Xs = rng.standard_normal((n, D_X)).astype(np.float32)
@@ -510,6 +717,38 @@ def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
                                X.std(0, keepdims=True),
                                Y.mean(0, keepdims=True),
                                Y.std(0, keepdims=True))
+    return Xs, Ys, stats
+
+
+def _served_agreement(out, plain, what, tol=1e-3) -> dict:
+    """The first batches of a served run against the same batches through
+    the plain versions on the card: same rounding classes on both paths;
+    the f32 sums run in another order and the difference passes through
+    the inner layer's sample."""
+    agree = {}
+    for k in ("mean", "var", "log_density"):
+        a, b = out[k][:plain[k].shape[0]], plain[k]
+        err = float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+        if not err <= tol:
+            fail(f"{what} {k}: kernels vs plain versions differ by {err} "
+                 f"(tol {tol}, |a-b|/(1+|b|))")
+        agree[k] = err
+    return agree
+
+
+def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
+    """The served model on the K2 route (``serve_pallas=False``)."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.models import predict_y_and_log_density
+    from dgps_with_iwvi_torch.ops.hopper import build
+    from dgps_with_iwvi_torch.params import params_to_device
+    from dgps_with_iwvi_torch.serving import Scorer
+
+    X, Y, config, params, build_s = model
+    config = dataclasses.replace(config, serve_pallas=False)
+    n = REQUESTS * B_SERVE
+    Xs, Ys, stats = _requests(X, Y)
     scorer = Scorer(params, config, S_SERVE, stats, device="cuda")
     scorer.score(Xs[:B_SERVE], Ys[:B_SERVE], seed=0)          # warm-up
 
@@ -535,16 +774,7 @@ def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
         t0 = time.perf_counter()
         plain = scorer.score(Xs[:2 * B_SERVE], Ys[:2 * B_SERVE], seed=100)
         plain_s = time.perf_counter() - t0
-    # same rounding classes on both paths; the f32 sums run in another
-    # order and the difference passes through the inner layer's sample
-    agree = {}
-    for k, tol in (("mean", 1e-3), ("var", 1e-3), ("log_density", 1e-3)):
-        a, b = out[k][:2 * B_SERVE], plain[k]
-        err = float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
-        if not err <= tol:
-            fail(f"serving {k}: kernels vs plain versions differ by {err} "
-                 f"(tol {tol}, |a-b|/(1+|b|))")
-        agree[k] = err
+    agree = _served_agreement(out, plain, "serving")
 
     # a small batch against the port's CPU path (held to JAX by the tests)
     Bs, Ss = 256, 8
@@ -581,6 +811,84 @@ def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
     }
 
 
+PALLAS_SERVE = [
+    # (label, DGPConfig fields replaced, launches per request); the
+    # default config's serve_pallas="auto" takes K4 in inference
+    ("serve_pallas", {},
+     {"serve_cond:sample": 1, "serve_cond:infer": 1, "chol_inv": 1}),
+    ("use_pallas", {"use_pallas": True, "serve_pallas": False},
+     {"conditional:sample": 1, "conditional:fused": 1, "chol_inv": 1}),
+]
+
+
+def pallas_serving_phase(torch, model, profile: bool) -> dict:
+    """The served model of phase 4 on its default config (serve_pallas
+    "auto": K4 takes both layers) and with use_pallas=True (K5 'sample'
+    the inner layer, K5 'fused' the final one): the same 8 requests
+    through ``Scorer``, whose
+    launch counts must be exactly the listed ones per request; the first
+    two batches against the plain versions on the card (the same
+    generator seeds: the same noise, and for K5 the same Philox stream).
+    With `profile`, device time by kernel over two requests per route."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.ops.hopper import build
+    from dgps_with_iwvi_torch.serving import Scorer
+
+    X, Y, config, params, _ = model
+    Xs, Ys, stats = _requests(X, Y)
+    n = REQUESTS * B_SERVE
+    out = {}
+    for label, fields, want in PALLAS_SERVE:
+        cfg = dataclasses.replace(config, **fields)
+        scorer = Scorer(params, cfg, S_SERVE, stats, device="cuda")
+        scorer.score(Xs[:B_SERVE], Ys[:B_SERVE], seed=0)      # warm-up
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = scorer.score(Xs, Ys, seed=100, max_batch=B_SERVE)
+        serve_s = time.perf_counter() - t0
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != {k: v * REQUESTS for k, v in want.items()}:
+            fail(f"serving {label}: launches {counts} in {REQUESTS} "
+                 f"requests, want per request {want}")
+        for k, v in res.items():
+            if v.shape[0] != n or not np.all(np.isfinite(v)):
+                fail(f"serving {label}: {k} has shape {v.shape} or "
+                     "non-finite values")
+        if not np.all(res["var"] > 0):
+            fail(f"serving {label}: variances are not positive")
+        with build.plain_versions():
+            scorer.score(Xs[:B_SERVE], Ys[:B_SERVE], seed=100)  # warm-up
+            t0 = time.perf_counter()
+            plain = scorer.score(Xs[:2 * B_SERVE], Ys[:2 * B_SERVE],
+                                 seed=100)
+            plain_s = time.perf_counter() - t0
+        out[label] = {"points_per_s": n / serve_s, "serve_s": serve_s,
+                      "plain_points_per_s": 2 * B_SERVE / plain_s,
+                      "launches": counts,
+                      "vs_plain_on_card": _served_agreement(
+                          res, plain, f"serving {label}"),
+                      "mean_log_density": float(np.mean(res["log_density"]))}
+        if label == "serve_pallas":
+            # K4 draws the K2 route's noise, so the two differ only by
+            # K4's bf16x3 gram and its order of sums: recorded, not gated
+            default = Scorer(params, dataclasses.replace(
+                config, serve_pallas=False), S_SERVE, stats,
+                device="cuda").score(Xs[:2 * B_SERVE], Ys[:2 * B_SERVE],
+                                     seed=100)
+            out[label]["vs_k2_route"] = {
+                k: float(np.max(np.abs(res[k][:2 * B_SERVE] - default[k])
+                                / (1.0 + np.abs(default[k]))))
+                for k in ("mean", "var", "log_density")}
+        if profile:
+            prof = profile_serve(torch, scorer, Xs, Ys)
+            prof["idle_share_vs_unprofiled_wall"] = (
+                1.0 - prof["device_ms_per_request"] * REQUESTS
+                / (serve_s * 1e3))
+            out[label]["profile"] = prof
+    return out
+
+
 N_KIN8NM, D_KIN8NM = 7372, 8
 TRAIN_STEPS, BIG_STEPS = 200, 20
 
@@ -592,9 +900,12 @@ def _path_counts(build) -> dict:
     return counts
 
 
-def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps):
+def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
+                    gen_seed=None):
     """One step's loss and every gradient through the kernels and through
-    the plain versions on the card, same state, rows and noise."""
+    the plain versions on the card, same state, rows and noise: the noise
+    `eps`, or (gen_seed) draws from a generator seeded alike for both, so
+    that K5's in-kernel stream and its plain version draw the same."""
     from dgps_with_iwvi_torch.ops.hopper import build
 
     def tensors(tree, path):
@@ -607,8 +918,10 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps):
         return [] if tree is None else [(path, tree)]
 
     def run():
+        gen = (None if gen_seed is None else
+               torch.Generator(device="cuda").manual_seed(gen_seed))
         loss, g_nat, g_rest = train.loss_and_grads(config, tc, state, X, Y,
-                                                   idx=idx, eps=eps)
+                                                   gen, idx=idx, eps=eps)
         return loss, tensors(g_nat, "natvars") + tensors(g_rest, "rest")
 
     loss_k, g_k = run()
@@ -657,12 +970,9 @@ def profile_train(torch, step, state, X, Y, gen, steps: int = 5) -> dict:
             state, _ = step(state, X, Y, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    rows = [(e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
-            for e in events if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+    rows, spans = _device_rows(prof, steps)
     busy_ms = sum(r[0] for r in rows)
-    launches = sum(e.count for e in events
+    launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms,
@@ -670,7 +980,9 @@ def profile_train(torch, step, state, X, Y, gen, steps: int = 5) -> dict:
             "kernel_launches_per_step": launches / steps,
             "kernels_ms_per_step": [
                 {"kernel": k[:200], "ms": ms, "calls": c}
-                for ms, c, k in sorted(rows, reverse=True)[:40]]}
+                for ms, c, k in sorted(rows, reverse=True)[:40]],
+            "annotations_ms_per_step": [
+                {"span": k[:200], "ms": ms} for ms, _, k in spans]}
 
 
 def train_phase(torch, card: str, profile: bool) -> dict:
@@ -741,6 +1053,8 @@ def train_phase(torch, card: str, profile: bool) -> dict:
            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
     if profile:
         rec["profile_b512"] = profile_train(torch, step, state, X, Y, gen)
+    rec["use_pallas"] = _pallas_train(torch, train, build, config, params, X,
+                                      Y, tc, idx)
 
     reps = (B_BIG + N_KIN8NM - 1) // N_KIN8NM + 1
     Xb, Yb = X.repeat(reps, 1), Y.repeat(reps, 1)
@@ -764,7 +1078,57 @@ def train_phase(torch, card: str, profile: bool) -> dict:
     print(f"train: {rate:.1f} steps/s at B={B_TRAIN}, {rate_big:.2f} "
           f"steps/s at B={B_BIG} (LGG IW K={L_TRAIN} M={M}, natgrad final) "
           f"on {card}")
+    for label, r in rec["use_pallas"].items():
+        print(f"train use_pallas, {label}: {r['steps_per_s_b512']:.1f} "
+              f"steps/s at B={B_TRAIN} on {card}")
     return rec
+
+
+PALLAS_TRAIN = [
+    # (label, natgrad, timed steps, launches per step): natgrad's q_cov keeps
+    # the final layer on K2/K3; Adam alone takes it through K5 'fused'
+    ("natgrad final", "final", 100,
+     {"conditional:sample": 1, "epilogue:epi": 1, "epilogue_bwd:epi": 1,
+      "chol_inv": 2}),
+    ("Adam only", "none", 50,
+     {"conditional:sample": 1, "conditional:fused": 1, "chol_inv": 1}),
+]
+
+
+def _pallas_train(torch, train, build, config, params, X, Y, tc, idx) -> dict:
+    """The flagship step with use_pallas=True: the inner layer's conditional
+    and sample in K5 'sample' (its backward in plain f32), with natgrad on
+    the final layer and with Adam alone. Per variant: one step's loss and
+    gradients against the plain versions (the same generator seed, so the
+    same Philox stream), then timed steps whose launch counts must be
+    exactly the listed ones per step."""
+    import dataclasses
+
+    cfg = dataclasses.replace(config, use_pallas=True)
+    out = {}
+    for label, natgrad, steps, want in PALLAS_TRAIN:
+        tc_l = dataclasses.replace(tc, natgrad=natgrad)
+        init, step, _, _ = train.make_trainer(cfg, tc_l)
+        state = init(params)
+        agree = _grad_agreement(torch, train, cfg, tc_l, state, X, Y, idx,
+                                None, gen_seed=3)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(5):                                   # warm-up
+            state, _ = step(state, X, Y, gen)
+        build.reset_launches()
+        state, rate, losses = _steps_per_s(torch, step, state, X, Y, gen,
+                                           steps)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != {k: v * steps for k, v in want.items()}:
+            fail(f"train use_pallas ({label}): launches {counts} in {steps} "
+                 f"steps, want per step {want}")
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"train use_pallas ({label}): a loss is not finite")
+        out[label] = {"vs_plain_on_card": agree, "steps": steps,
+                      "steps_per_s_b512": rate, "launches": counts,
+                      "loss_first": float(losses[0]),
+                      "loss_last": float(losses[-1])}
+    return out
 
 
 def main() -> int:
@@ -772,9 +1136,9 @@ def main() -> int:
     ap.add_argument("--out", help="also write the record to DIR/"
                     "chip_smoke.json")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace two served requests and five training "
-                    "steps with torch.profiler and print device time by "
-                    "kernel and the idle share")
+                    help="also trace two served requests per serving "
+                    "route and five training steps with torch.profiler and "
+                    "record device time by kernel and the idle share")
     opts = ap.parse_args()
 
     import torch
@@ -820,7 +1184,9 @@ def main() -> int:
                     config.jitter_tries)
     k2 = epilogue_phase(torch, hopper, gen)
     k3, rec["epilogue_bwd_checks"] = epilogue_bwd_phase(torch, hopper, gen)
+    k45, rec["fused_checks"] = fused_phase(torch, hopper, gen)
     rec["slice"] = slice_phase(torch, model, rec, opts.profile)
+    rec["pallas_serving"] = pallas_serving_phase(torch, model, opts.profile)
     rec["train"] = train_phase(torch, card, opts.profile)
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
@@ -828,17 +1194,31 @@ def main() -> int:
         rec["profile"]["idle_share_vs_unprofiled_wall"] = (
             1.0 - rec["profile"]["device_ms_per_request"] / wall)
         print("profile: " + json.dumps(rec["profile"]))
-    for k in (k1, *k2, *k3):
-        by_path = {"serve": rec["slice"]["launches"].get(k["name"], 0),
-                   "train": rec["train"]["launches"].get(k["name"], 0)}
+    paths = {"serve": rec["slice"]["launches"],
+             "train": rec["train"]["launches"],
+             "serve_pallas": rec["pallas_serving"]["serve_pallas"]["launches"],
+             "predict_use_pallas":
+                 rec["pallas_serving"]["use_pallas"]["launches"],
+             "train_use_pallas":
+                 rec["train"]["use_pallas"]["natgrad final"]["launches"],
+             "train_use_pallas_adam":
+                 rec["train"]["use_pallas"]["Adam only"]["launches"]}
+    for k in (k1, *k2, *k3, *k45):
+        by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-    rec["kernels"] = [k1, *k2, *k3]
+    rec["kernels"] = [k1, *k2, *k3, *k45]
     s = rec["slice"]
-    print(f"serve: {s['points_per_s']:.0f} points/s (S={S_SERVE}, "
-          f"B={B_SERVE}, {REQUESTS} requests; plain versions "
+    print(f"serve, K2 route: {s['points_per_s']:.0f} points/s "
+          f"(S={S_SERVE}, B={B_SERVE}, {REQUESTS} requests; plain versions "
           f"{s['plain_points_per_s']:.0f}) on {card}")
+    for label, r in rec["pallas_serving"].items():
+        print(f"serve {label}: {r['points_per_s']:.0f} points/s (plain "
+              f"versions {r['plain_points_per_s']:.0f}; K2 route "
+              f"{s['points_per_s']:.0f}) on {card}")
     print("slice: " + json.dumps(s))
+    print("pallas serving: " + json.dumps(rec["pallas_serving"]))
+    print("fused checks: " + json.dumps(rec["fused_checks"]))
     print("train: " + json.dumps(rec["train"]))
     print("epilogue_bwd checks: " + json.dumps(rec["epilogue_bwd_checks"]))
     if opts.out:

@@ -15,8 +15,10 @@ the caller passes ``device="cpu"``; on a CPU tensor each kernel wrapper
 takes its plain PyTorch version.
 
 Ported so far: the serving path (``models.predict_y_and_log_density`` and
-``serving.Scorer``) and the single-device trainer (``training``: the
-objectives, natural gradients, ``make_trainer`` and ``fit``). Data, CLI,
+``serving.Scorer``), the single-device trainer (``training``: the
+objectives, natural gradients, ``make_trainer`` and ``fit``) and the
+fused-conditional routes (``DGPConfig.use_pallas`` and ``serve_pallas``),
+so every Pallas kernel of the reference has a counterpart. Data, CLI,
 checkpoints and the parallel trainer come in later slices (ROADMAP.md).
 """
 

@@ -43,6 +43,8 @@ class BuildArgs:
     q_diag: bool = False
     var_precision: str = "default"
     solve_precision: str = "high"
+    use_pallas: bool | str = "auto"   # DGPConfig.use_pallas
+    serve_pallas: bool | str = "auto"  # DGPConfig.serve_pallas
 
 
 def kmeans_centers(X: torch.Tensor, k: int, generator: torch.Generator,
@@ -108,10 +110,12 @@ def build_config(args: BuildArgs, d_x: int, d_y: int,
         num_samples=args.num_samples,
         num_iw_samples=args.num_iw_samples,
         jitter=args.jitter,
+        use_pallas=args.use_pallas,
         likelihood=args.likelihood,
         jitter_tries=args.jitter_tries,
         var_precision=args.var_precision,
         solve_precision=args.solve_precision,
+        serve_pallas=args.serve_pallas,
     )
 
 

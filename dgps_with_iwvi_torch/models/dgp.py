@@ -33,6 +33,21 @@ class DGPConfig:
     var_precision: class of the q-variance matmuls ('default' = bf16
     operands, f32 accumulation). solve_precision: class of the solve path
     A = Linv Kuf and the mean ('high' = bf16x3). See ops/precision.py.
+
+    use_pallas: True takes whitened RBF layers through the whole-
+    conditional kernel K5 (inner layers with the sample drawn in the
+    kernel, the final layer through its f32 forward and residual
+    backward); "auto" resolves to False, as in the reference
+    (``models/dgp.py:63``, ``layers.py:213-214``).
+    serve_pallas: True takes prediction through the inference-only K4 (at
+    the 'default' / 'high' classes); the counterpart of the reference's
+    module switch ``ops/conditionals.py:856`` ``SERVE_PALLAS``, as an
+    explicit field. Not differentiable: an objective that needs gradients
+    raises with it True. "auto" takes K4 where the reference's "auto"
+    does, in inference off the CPU: on CUDA tensors through which no
+    gradient is needed. The reference ships "off" from TPU measurements;
+    on the H100 K4 is the fastest serving route (PERF.md), so "auto" is
+    the default here, and False keeps the default route.
     """
 
     layers: tuple  # tuple[GPLayerConfig | LVLayerConfig, ...]
@@ -41,11 +56,13 @@ class DGPConfig:
     num_samples: int = 1        # S, the prediction default
     num_iw_samples: int = 1     # K
     jitter: float = linalg.DEFAULT_JITTER
+    use_pallas: bool | str = "auto"
     likelihood: str = "gaussian"
     jitter_tries: int = 4
     var_precision: str = "default"
     solve_precision: str = "high"
     priors: tuple = ()          # hyperparameter priors: ROADMAP queue 7
+    serve_pallas: bool | str = "auto"
 
     def __post_init__(self):
         if self.objective not in ("vi", "iw"):
@@ -146,7 +163,9 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
             F, moments = gp_layer_propagate(
                 params["layers"][i], cfg, F, eps=eps_i, generator=generator,
                 jitter=config.jitter, jitter_tries=config.jitter_tries,
-                numerics=numerics, Lm=Lm, Linv=Linv)
+                numerics=numerics, Lm=Lm, Linv=Linv,
+                use_pallas=config.use_pallas,
+                serve_pallas=config.serve_pallas)
             if cfg.final:
                 final_out = moments
     fmean, fvar = final_out

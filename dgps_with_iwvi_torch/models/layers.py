@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from ..ops import conditionals, kernels, kl, mean_functions
+from ..ops.hopper import serve_cond
 from ..ops.linalg import DEFAULT_JITTER
 from ..ops.precision import Numerics
 from . import encoders
@@ -156,11 +157,20 @@ def gp_layer_propagate(
     numerics: Numerics = Numerics(),
     Lm: torch.Tensor | None = None,
     Linv: torch.Tensor | None = None,
+    use_pallas: bool | str = False,
+    serve_pallas: bool | str = False,
 ):
     """One whitened-SVGP layer step.
 
     Non-final: (reparameterized sample [..., B, d_out], (mean, var)), the
     sample noise from ``eps`` or ``generator``. Final: (None, (mean, var)).
+
+    Routes, in the reference's order and under its conditions
+    (``layers.py:213-244``): ``serve_pallas`` takes the whole conditional
+    through K4 (inference only; "auto" where no gradient is needed through
+    this layer and F lies on the card); ``use_pallas`` takes an inner layer's
+    conditional and sample through K5 ``sample`` and the final layer's
+    conditional through K5 ``fused``; else the default route.
     """
     q_cov = params.get("q_cov", params.get("q_cov_diag"))
     if q_cov is not None:
@@ -168,29 +178,58 @@ def gp_layer_propagate(
     else:
         q_sqrt = (params["q_sqrt"] if cfg.q_diag
                   else torch.tril(params["q_sqrt"]))
-    out = conditionals.conditional(
-        F, params["Z"], params["kernel"], params["q_mu"], q_sqrt,
-        kernel_kind=cfg.kernel_kind, jitter=jitter, jitter_tries=jitter_tries,
-        white=cfg.white, var_precision=numerics.var,
-        solve_precision=numerics.solve,
-        solve_bwd_precision=numerics.solve_bwd,
-        kuf_residual=numerics.kuf_residual, Lm=Lm, Linv=Linv, q_S=q_cov)
+    if use_pallas == "auto":
+        use_pallas = False
+    serve_fused = conditionals._serve_fused_applicable(
+        F, q_sqrt, q_cov, cfg.kernel_kind, cfg.white, numerics.var,
+        numerics.solve, serve_pallas, serve_cond.needs_grad(
+            F, params["Z"], params["q_mu"], q_sqrt, Lm, Linv,
+            *params["kernel"].values()))
+    fused_sample = serve_fused and not cfg.final
+    if serve_fused:
+        noise = (None if cfg.final else
+                 _normal(F.shape[:-1] + (cfg.d_out,), F, eps, generator))
+        raw_sample, out = conditionals.infer_conditional_fused(
+            F, params["Z"], params["kernel"], params["q_mu"], q_sqrt,
+            eps=noise, jitter=jitter, jitter_tries=jitter_tries, Lm=Lm,
+            Linv=Linv)
+    elif (use_pallas and not cfg.final and cfg.white and not cfg.q_diag
+          and q_cov is None):
+        fused_sample = True
+        raw_sample, out = conditionals.sample_conditional_fused(
+            F, params["Z"], params["kernel"], params["q_mu"], q_sqrt,
+            kernel_kind=cfg.kernel_kind, jitter=jitter,
+            jitter_tries=jitter_tries, Lm=Lm, Linv=Linv, eps=eps,
+            generator=generator)
+    else:
+        out = conditionals.conditional(
+            F, params["Z"], params["kernel"], params["q_mu"], q_sqrt,
+            kernel_kind=cfg.kernel_kind, jitter=jitter,
+            jitter_tries=jitter_tries, white=cfg.white,
+            var_precision=numerics.var, solve_precision=numerics.solve,
+            solve_bwd_precision=numerics.solve_bwd,
+            kuf_residual=numerics.kuf_residual, Lm=Lm, Linv=Linv, q_S=q_cov,
+            use_pallas=use_pallas)
     mf_kind = resolved_mean_function(cfg)
     if mf_kind == "skip":
         W = params.get("mean_W")  # fixed: no gradient, as in the reference
-        mean = out.mean + mean_functions.apply_mean_function(
+        mf = mean_functions.apply_mean_function(
             F, None if W is None else W.detach())
     elif mf_kind == "linear":
-        mean = (out.mean + mean_functions.linear_mean(F, params["mean_W"])
-                + params["mean_b"])
+        mf = mean_functions.linear_mean(F, params["mean_W"]) + params["mean_b"]
     elif mf_kind == "constant":
-        mean = out.mean + params["mean_b"]
+        mf = params["mean_b"]
     else:
-        mean = out.mean
+        mf = None
+    mean = out.mean if mf is None else out.mean + mf
     if cfg.final:
         return None, (mean, out.var)
-    noise = _normal(mean.shape, mean, eps, generator)
-    return mean + conditionals.safe_sqrt(out.var) * noise, (mean, out.var)
+    if fused_sample:
+        sample = raw_sample if mf is None else raw_sample + mf
+    else:
+        noise = _normal(mean.shape, mean, eps, generator)
+        sample = mean + conditionals.safe_sqrt(out.var) * noise
+    return sample, (mean, out.var)
 
 
 def gp_layer_kl(params, cfg: GPLayerConfig) -> torch.Tensor:

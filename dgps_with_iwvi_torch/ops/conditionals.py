@@ -26,6 +26,25 @@ for training and gates both by TPU-measured floors (``EPI_TRAIN``,
 Function for both, whose forward is the same K2 launch, and carries no
 floor. At ``highest`` (the full-batch escalation) the conditions fail and
 the plain path runs, as the reference's overrides make it.
+
+The whole-conditional routes (reference l.808-998) take the gram, A, the
+moments and optionally the sample in one kernel, on lengthscale-scaled
+inputs (so the lengthscale and variance gradients flow through ordinary
+autograd around it):
+
+- ``conditional(use_pallas=True)``: K5 ``fused`` at true f32, with its
+  residual backward (``ops/hopper/conditional.py``);
+- ``sample_conditional_fused``: K5 ``sample``, the noise drawn in the
+  kernel from a seed off the caller's generator; with injected ``eps``,
+  K5 ``fused`` and the sample outside, as the reference's off-TPU route;
+- ``infer_conditional_fused``: K4 at the bf16x3 / bf16 classes,
+  inference only (``ops/hopper/serve_cond.py``), behind the model's
+  ``serve_pallas`` (the reference's ``SERVE_PALLAS``), whose "auto"
+  takes it for inference on the card.
+
+They keep the reference's structural conditions and drop its TPU tile and
+size floors (``Z.shape[0] % 128``, ``_SERVE_FUSED_MIN_COLS``): K4 and K5
+take any M and N.
 """
 
 from __future__ import annotations
@@ -35,7 +54,9 @@ from typing import NamedTuple
 import torch
 
 from . import kernels, precision
+from .hopper import conditional as cond_kernel
 from .hopper import qvar as qvar_kernel
+from .hopper import serve_cond as serve_kernel
 from .linalg import DEFAULT_JITTER, cholesky_with_jitter, solve_triangular
 
 
@@ -163,13 +184,17 @@ def conditional(
     solve_precision: str | None = None,
     solve_bwd_precision: str | None = None,
     kuf_residual: bool = True,
+    use_pallas: bool | str = False,
 ) -> ConditionalOut:
     """End-to-end whitened conditional: grams -> chol -> solve -> moments.
 
     Inducing points only; the non-whitened parameterization and the
     multiscale features wait for ROADMAP queue 8. kuf_residual: whether
     the cross gram may keep its output as its backward residual
-    (``ops/kernels.py``)."""
+    (``ops/kernels.py``). use_pallas=True takes the whole conditional
+    through K5 ``fused`` (every dot at f32, whatever the precision
+    arguments say) where the reference's conditions hold: rbf, white, no
+    q_S, a 3-D q_sqrt; "auto" resolves to False, as in the reference."""
     if not white:
         raise NotImplementedError(
             "the non-whitened conditional is not ported yet (ROADMAP "
@@ -177,6 +202,16 @@ def conditional(
     if Lm is None:
         Kuu = kernels.K(kernel_params, Z, Z, kind=kernel_kind)
         Lm = cholesky_with_jitter(Kuu, jitter, max_tries=jitter_tries)
+    if use_pallas == "auto":
+        use_pallas = False
+    if (use_pallas and kernel_kind == "rbf" and q_S is None
+            and q_sqrt is not None and q_sqrt.ndim == 3):
+        xs, zs, var, shape = _scaled(X, Z, kernel_params, q_mu)
+        mean, v = cond_kernel.fused_conditional(
+            xs, zs, var, _linv(Z, kernel_params, jitter, jitter_tries, Lm,
+                               Linv), q_mu, q_sqrt)
+        return ConditionalOut(mean.reshape(shape).to(X.dtype),
+                              v.reshape(shape).to(X.dtype))
     Kuf = kernels.K(kernel_params, Z, X, kind=kernel_kind,     # [..., M, N]
                     kuf_residual=kuf_residual)
     Kff_diag = kernels.Kdiag(kernel_params, X, kind=kernel_kind)
@@ -184,3 +219,109 @@ def conditional(
         Kuf, Lm, Kff_diag, q_mu, q_sqrt, var_precision=var_precision,
         Linv=Linv, q_S=q_S, solve_precision=solve_precision,
         solve_bwd_precision=solve_bwd_precision)
+
+
+def _scaled(X, Z, kernel_params, q_mu):
+    """(xs [rows, d_in], zs [M, d_in], var, output shape [..., N, D]): the
+    lengthscale-scaled inputs of K4 and K5 (reference l.814-821)."""
+    ls = kernels.kernel_lengthscales(kernel_params)
+    xs = (X / ls).reshape(-1, X.shape[-1])
+    return (xs, Z / ls, kernels.kernel_variance(kernel_params),
+            X.shape[:-1] + (q_mu.shape[1],))
+
+
+def _linv(Z, kernel_params, jitter, jitter_tries, Lm, Linv):
+    """Linv, else Lm^-1 by a triangular solve, Lm factored from Kuu where
+    not given (reference l.822-823, l.905-910)."""
+    if Linv is not None:
+        return Linv
+    if Lm is None:
+        Kuu = kernels.K(kernel_params, Z, Z, kind="rbf")
+        Lm = cholesky_with_jitter(Kuu, jitter, max_tries=jitter_tries)
+    m = Lm.shape[-1]
+    return solve_triangular(
+        Lm, torch.eye(m, dtype=Lm.dtype, device=Lm.device), lower=True)
+
+
+def _serve_fused_applicable(X, q_sqrt, q_S, kernel_kind: str, white: bool,
+                            var_precision, solve_precision,
+                            serve_pallas: bool | str,
+                            grad_needed: bool) -> bool:
+    """Whether K4 takes this conditional (reference l.860-883): asked for,
+    rbf, white, root form, float32, and the precision classes K4
+    implements. "auto" asks for it where the reference's "auto" does, in
+    inference off the CPU: on CUDA tensors through which no gradient is
+    needed. The reference's TPU floors (M a multiple of 128, at least
+    1024 columns) are not carried over."""
+    want = (X.is_cuda and not grad_needed if serve_pallas == "auto"
+            else bool(serve_pallas))
+    return (want and kernel_kind == "rbf" and white
+            and q_S is None and q_sqrt is not None and q_sqrt.ndim == 3
+            and X.dtype == torch.float32 and var_precision == "default"
+            and solve_precision == "high")
+
+
+def infer_conditional_fused(X, Z, kernel_params, q_mu, q_sqrt, *,
+                            eps: torch.Tensor | None = None,
+                            jitter: float = DEFAULT_JITTER,
+                            jitter_tries: int = 4,
+                            Lm: torch.Tensor | None = None,
+                            Linv: torch.Tensor | None = None):
+    """(sample or None, ConditionalOut) through K4 (reference l.886-933):
+    the sample mean + sqrt(max(var, 1e-12)) eps where the caller gives
+    eps [..., N, D] (ordinary noise, as the default route draws it).
+    Inference only; callers check ``_serve_fused_applicable``."""
+    Linv = _linv(Z, kernel_params, jitter, jitter_tries, Lm, Linv)
+    xs, zs, var, shape = _scaled(X, Z, kernel_params, q_mu)
+    out = serve_kernel.fused_conditional_infer(
+        xs, zs, var, Linv, q_mu, q_sqrt,
+        None if eps is None else eps.reshape(-1, shape[-1]))
+    out = [t.reshape(shape).to(X.dtype) for t in out]
+    if eps is None:
+        return None, ConditionalOut(*out)
+    return out[0], ConditionalOut(out[1], out[2])
+
+
+def sample_conditional(X, Z, kernel_params, q_mu, q_sqrt, *,
+                       eps: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None, **kw):
+    """(sample, ConditionalOut): F = mean + safe_sqrt(var) eps, the noise
+    from ``eps`` or ``generator`` (reference l.981-998)."""
+    out = conditional(X, Z, kernel_params, q_mu, q_sqrt, **kw)
+    if eps is None:
+        eps = torch.randn(out.mean.shape, generator=generator,
+                          dtype=out.mean.dtype, device=out.mean.device)
+    return out.mean + safe_sqrt(out.var) * eps.to(out.mean.dtype), out
+
+
+def sample_conditional_fused(X, Z, kernel_params, q_mu, q_sqrt, *,
+                             kernel_kind: str = "rbf",
+                             jitter: float = DEFAULT_JITTER,
+                             jitter_tries: int = 4,
+                             Lm: torch.Tensor | None = None,
+                             Linv: torch.Tensor | None = None,
+                             eps: torch.Tensor | None = None,
+                             generator: torch.Generator | None = None):
+    """(sample, ConditionalOut) of an inner layer in one K5 ``sample``
+    launch: the noise is drawn in the kernel from an int64 seed that
+    ``generator`` gives (reference l.936-978; there the seed is
+    ``jax.random.bits(key)``). With injected ``eps`` (tests), K5 ``fused``
+    and the sample outside, as the reference's route off the TPU; another
+    kernel kind takes the default route. Linv is the prefactor's inverse
+    where given (the reference solves for it again, l.971)."""
+    if eps is not None or kernel_kind != "rbf":
+        return sample_conditional(
+            X, Z, kernel_params, q_mu, q_sqrt, eps=eps, generator=generator,
+            kernel_kind=kernel_kind, jitter=jitter, jitter_tries=jitter_tries,
+            Lm=Lm, Linv=Linv, use_pallas=True)
+    if generator is None:
+        raise ValueError("a sample site needs eps or a torch.Generator")
+    Linv = _linv(Z, kernel_params, jitter, jitter_tries, Lm, Linv)
+    xs, zs, var, shape = _scaled(X, Z, kernel_params, q_mu)
+    seed = torch.randint(0, 2 ** 62, (), generator=generator,
+                         dtype=torch.int64, device=generator.device)
+    samp, mean, v = cond_kernel.fused_conditional_sample(
+        xs, zs, var, Linv, q_mu, q_sqrt, seed.to(X.device))
+    return (samp.reshape(shape).to(X.dtype),
+            ConditionalOut(mean.reshape(shape).to(X.dtype),
+                           v.reshape(shape).to(X.dtype)))

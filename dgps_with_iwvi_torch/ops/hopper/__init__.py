@@ -5,4 +5,4 @@ On a CPU tensor a wrapper takes the plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
 
-from . import build, chol, qvar  # noqa: F401
+from . import build, chol, conditional, qvar, serve_cond  # noqa: F401

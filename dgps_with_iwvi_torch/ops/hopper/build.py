@@ -32,7 +32,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-KERNELS = ("chol_inv", "epilogue", "epilogue_bwd")
+KERNELS = ("chol_inv", "epilogue", "epilogue_bwd", "serve_cond", "conditional")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

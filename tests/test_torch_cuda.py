@@ -6,12 +6,19 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: both sides multiply the same bf16-rounded operands into f32
-(K2, K3) or run plain f32 (K1), so they differ by the order of f32 sums
-only: 1e-4 of the largest plain value for the q-variance, the mean and
+(K2, K3, K4) or run plain f32 (K1, K5), so they differ by the order of f32
+sums only: 1e-4 of the largest plain value for the q-variance, the mean and
 every gradient of K3, 1e-5 for the sum of squares; the Cholesky bounds of
-tests/test_pallas_chol.py.
+tests/test_pallas_chol.py; 1e-5 for every output of K5. K4 computes A
+itself, in another order of sums than its plain version: an element of A
+moved across a bf16 rounding boundary moves bf16(A) by one bf16 unit, the
+q-variance by up to 2^-8 of one of its terms and the sample through its
+sd; 1e-4 on the mean, 2e-3 on the variance and the sample (a little
+over twice the largest reading of chip_smoke.py on an H100, 8.7e-4 on the
+variance at the serving shape).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -21,7 +28,8 @@ import torch
 from dgps_with_iwvi_torch.models import (BuildArgs, build_model,
                                          predict_y_and_log_density)
 from dgps_with_iwvi_torch.ops import linalg
-from dgps_with_iwvi_torch.ops.hopper import build, chol, qvar
+from dgps_with_iwvi_torch.ops.hopper import (build, chol, conditional, qvar,
+                                             serve_cond)
 
 pytestmark = pytest.mark.cuda
 
@@ -118,21 +126,60 @@ def test_serving_path_runs_the_kernels(gen, m):
     config, params = build_model(0, BuildArgs(configuration="LGG", mode="IW",
                                               num_inducing=m), X, Y)
     Xt, Yt = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+    assert config.serve_pallas == "auto"
 
-    def run():
+    def run(cfg):
         g = torch.Generator(device="cuda").manual_seed(5)
-        return predict_y_and_log_density(params, config, Xt, Yt, g, 4)
+        return predict_y_and_log_density(params, cfg, Xt, Yt, g, 4)
 
+    # "auto": K4 takes both layers in inference on the card; False: K2
+    routes = ((config, {"chol_inv": 1, "epilogue": 0, "epilogue_bwd": 0,
+                        "serve_cond": 2, "conditional": 0}),
+              (dataclasses.replace(config, serve_pallas=False),
+               {"chol_inv": 1, "epilogue": 2, "epilogue_bwd": 0,
+                "serve_cond": 0, "conditional": 0}))
+    for cfg, want in routes:
+        build.reset_launches()
+        (m, v), ld = run(cfg)
+        assert build.launches() == want
+        with build.plain_versions():
+            (mp, vp), ldp = run(cfg)
+        assert build.launches() == want
+        for a, b in ((m, mp), (v, vp), (ld, ldp)):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if not isinstance(tree, (list, tuple)):
+        return []
+    return [t for sub in tree for t in _leaves(sub)]
+
+
+def test_serve_pallas_auto_leaves_gradients_to_the_default_route(gen):
+    """Where a gradient is needed, "auto" takes the default route (K2 and
+    its backward K3) and does not raise; under no_grad it takes K4."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((256, 8)).astype(np.float32)
+    Y = np.sin(X[:, :1]).astype(np.float32)
+    config, params = build_model(0, BuildArgs(configuration="LGG", mode="IW",
+                                              num_inducing=64), X, Y)
+    leaves = [t.requires_grad_() for t in _leaves(params)]
+    Xt, Yt = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
     build.reset_launches()
-    (m, v), ld = run()
-    assert build.launches() == {"chol_inv": 1, "epilogue": 2,
-                                "epilogue_bwd": 0}
-    with build.plain_versions():
-        (mp, vp), ldp = run()
-    assert build.launches() == {"chol_inv": 1, "epilogue": 2,
-                                "epilogue_bwd": 0}
-    for a, b in ((m, mp), (v, vp), (ld, ldp)):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    (m, v), ld = predict_y_and_log_density(params, config, Xt, Yt, g, 4)
+    torch.autograd.grad(ld.sum(), leaves, allow_unused=True)
+    counts = build.launches()
+    assert counts["serve_cond"] == 0 and counts["epilogue"] == 2
+    assert counts["epilogue_bwd"] == 2
+    build.reset_launches()
+    with torch.no_grad():
+        predict_y_and_log_density(params, config, Xt, Yt, g, 4)
+    assert build.launches()["serve_cond"] == 2
 
 
 def _bwd_inputs(gen, L, m, n, d, cov):
@@ -197,6 +244,83 @@ def test_training_functions_launch_k2_and_k3(gen):
     torch.autograd.grad((qv * g_qv).sum() + (ss * g_ss).sum()
                         + (mn * g_mn).sum(), (A, W))
     assert build.launches() == {"chol_inv": 0, "epilogue": 1,
-                                "epilogue_bwd": 1}
+                                "epilogue_bwd": 1, "serve_cond": 0,
+                                "conditional": 0}
     assert build.variant_launches() == {"epilogue:epi": 1,
                                         "epilogue_bwd:epi": 1}
+
+
+def _cond_inputs(gen, n, m, d_in, d):
+    xs = 0.5 * torch.randn((n, d_in), generator=gen, device="cuda")
+    zs = 0.5 * torch.randn((m, d_in), generator=gen, device="cuda")
+    var = torch.tensor(1.7, device="cuda")
+    R = torch.randn((m, m), generator=gen, device="cuda", dtype=torch.float64)
+    Lk = torch.linalg.cholesky(R @ R.T + m * torch.eye(m, device="cuda",
+                                                       dtype=torch.float64))
+    linv = (3.0 * torch.linalg.inv(Lk)).float()
+    q_mu = torch.randn((m, d), generator=gen, device="cuda")
+    lq = 0.3 * torch.tril(torch.randn((d, m, m), generator=gen, device="cuda"))
+    return xs, zs, var, linv, q_mu, lq
+
+
+def _rel_close(got, ref, rel):
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=rel * float(ref.abs().max()))
+
+
+# any M: 20 and 100 pad inside the kernels, 200 takes two column chunks
+@pytest.mark.parametrize("m", [20, 100, 128, 200])
+@pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1)])
+@pytest.mark.parametrize("with_eps", [False, True])
+def test_serve_cond_kernel_matches_plain(gen, m, d_in, d, with_eps):
+    n = 1000  # ragged: not a multiple of a block's rows
+    args = _cond_inputs(gen, n, m, d_in, d)
+    eps = (torch.randn((n, d), generator=gen, device="cuda") if with_eps
+           else None)
+    got = serve_cond.fused_conditional_infer(*args, eps)
+    with build.plain_versions():
+        ref = serve_cond.fused_conditional_infer(*args, eps)
+    tols = ((2e-3,) if with_eps else ()) + (1e-4, 2e-3)   # (sample,) mean, var
+    for g, r, tol in zip(got, ref, tols):
+        _rel_close(g, r, tol)
+
+
+@pytest.mark.parametrize("m", [20, 100, 128, 200])
+@pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1)])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_conditional_kernel_matches_plain(gen, m, d_in, d, seeded):
+    """Both variants, the residuals Kxz and A, and the sample element by
+    element against the plain Philox stream."""
+    n = 1000
+    args = _cond_inputs(gen, n, m, d_in, d)
+    seed = (torch.tensor(2 ** 40 + 3, dtype=torch.int64, device="cuda")
+            if seeded else None)
+    got = conditional.fused_forward(*args, seed, residuals=True)
+    with build.plain_versions():
+        ref = conditional.fused_forward(*args, seed, residuals=True)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            _rel_close(g, r, 1e-5)
+
+
+def test_conditional_sample_is_deterministic_and_seeded(gen):
+    args = _cond_inputs(gen, 4096, 128, 9, 8)
+    seed = torch.tensor(7, dtype=torch.int64, device="cuda")
+    a = conditional.fused_forward(*args, seed, residuals=False)[2]
+    b = conditional.fused_forward(*args, seed, residuals=False)[2]
+    c = conditional.fused_forward(*args, seed + 1, residuals=False)[2]
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_conditional_functions_launch_k5(gen):
+    args = [t.requires_grad_() for t in _cond_inputs(gen, 512, 128, 9, 8)]
+    build.reset_launches()
+    mean, v = conditional.fused_conditional(*args)
+    torch.autograd.grad(mean.sum() + v.sum(), args)
+    seed = torch.tensor(1, dtype=torch.int64, device="cuda")
+    s, mean, v = conditional.fused_conditional_sample(*args, seed)
+    torch.autograd.grad(s.sum(), args)
+    assert build.variant_launches() == {"conditional:fused": 1,
+                                        "conditional:sample": 1}

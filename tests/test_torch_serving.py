@@ -194,7 +194,13 @@ def test_port_builds_and_scores_lgg_on_cpu():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, dgps_with_iwvi_torch, dgps_with_iwvi_torch.serving;"
+    """Every module of the package, found by walking it, imports no JAX
+    and nothing of the reference package."""
+    code = ("import importlib, pkgutil, sys, dgps_with_iwvi_torch as p;"
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')];"
+            "[importlib.import_module(m) for m in mods];"
+            "assert len(mods) > 20, mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'dgps_with_iwvi_tpu'))];"
             "print(bad); sys.exit(1 if bad else 0)")
