@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100), kernels included.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py --ab PARENT --out DIR
+
+The second form compares this tree with a checkout of another commit at
+PARENT on one card (``ab_kernels``, ``ab_runs``) and writes DIR/ab.json.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -10,12 +14,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. build: every csrc/*.cu by its own nvcc, all at once, timed as set-up;
 3. kernels: each hand-written kernel, in every variant, against its plain
    PyTorch version on the same inputs on the card, with the tolerance
-   stated per case: K1 on the served model's own Kuu grams, plus its
-   jitter ladder on a rank-deficient gram; K2 (epilogue with mean, without
-   mean, q-variance only) at the serving shape (M=128, B=8192, S=100); K3
-   (its backward, in the same three forms) at the training shapes A
-   [20,128,512] and [20,128,8192], at M=100, and two launches bitwise
-   equal; K4 (``serve_cond``, with and without the sample) and K5
+   stated per case: K1 on the served model's own Kuu grams and on a
+   natgrad precision P (G=1, two levels), plus its jitter ladder on a
+   rank-deficient gram, with an empty kernel's time beside K1's; K2
+   (epilogue with mean, without mean, q-variance only) at the serving
+   shape (M=128, B=8192, S=100); K3 (its backward, in the same three
+   forms) at the training shapes A [20,128,512] and [20,128,8192], at
+   M=100, and two launches bitwise equal at both shapes; K4
+   (``serve_cond``, with and without the sample) and K5
    (``conditional``, fused and sample, with the residuals Kxz and A) at
    the serving and training shapes, a ragged N, M=100 and M=200, K5's
    sample element by element against the plain Philox stream, the
@@ -36,10 +42,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the final layer) on synthetic data of kin8nm's shape; one step's loss
    and gradients through the kernels against the plain versions on the
    card, 200 timed steps whose K1, K2 and K3 launch counts rise by 2 each
-   per step, and 20 steps at B=8192; then with ``use_pallas`` (the inner
-   layer in K5 'sample'), natgrad final (per step K5 'sample', K2 and K3
-   once, K1 twice) and Adam alone (the final layer in K5 'fused' and its
-   backward), each with one step against the plain versions.
+   per step, and 20 steps at B=8192 with the same counts; then with
+   ``use_pallas`` (the inner layer in K5 'sample'), natgrad final (per
+   step K5 'sample', K2 and K3 once, K1 twice) and Adam alone (the final
+   layer in K5 'fused' and its backward), each with one step against the
+   plain versions.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path), then the card's name and power limit, then
@@ -160,15 +167,52 @@ def _chol_case(torch, chol, linalg, K, jit) -> dict:
             "residual_LLinv": res_i, "tol_LLinv": tol_ri}
 
 
-def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries) -> dict:
+def natgrad_precision(torch, params, gen):
+    """A natgrad P [1, M, M] as training/natgrad.py factors it: S^-1 of the
+    final layer's q(u) plus 2 gamma H (gamma 1e-2, H a random PSD matrix of
+    unit scale), symmetrized."""
+    lq = params["layers"][-1]["q_sqrt"].double()            # [1, M, M]
+    Sinv = torch.cholesky_inverse(lq)
+    B = torch.randn(lq.shape, generator=gen, device="cuda").double()
+    P = Sinv + 2.0 * 1e-2 * (B @ B.mT) / lq.shape[-1]
+    return (0.5 * (P + P.mT)).float()
+
+
+def one_launch_wall_ms(torch, fn, reps: int = 21) -> float:
+    """Median host time of one call of fn up to its synchronize."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[reps // 2]
+
+
+def launch_floor(torch) -> dict:
+    """The time of an empty kernel (``torch.cuda._sleep(0)``, a kernel that
+    spins for 0 cycles), timed as the kernels are: back to back by CUDA
+    events, and one launch on the host clock up to its synchronize."""
+    def empty():
+        torch.cuda._sleep(0)
+    return {"ms": time_ms(torch, empty, 200),
+            "one_launch_wall_ms": one_launch_wall_ms(torch, empty)}
+
+
+def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
     """K1 against its plain version on the served model's stacked Kuu
     grams (G=2 GP layers, M=128) over its jitter ladder, which is what
-    the serving path factors; then on a well-conditioned SPD batch and on
-    a rank-deficient gram that has to climb the ladder."""
+    the serving path factors, and on natgrad's P (G=1, 2 levels from
+    1e-12); then on a well-conditioned SPD batch and on a rank-deficient
+    gram that has to climb the ladder. Beside K1's time, an empty kernel's
+    (``launch_floor``)."""
     chol = hopper.chol
     G = Kuu.shape[0]
     jit = linalg._jitter_ladder(jitter, tries, Kuu.dtype, Kuu.device)
     served = _chol_case(torch, chol, linalg, Kuu, jit)
+    jit_ng = linalg._jitter_ladder(1e-12, 2, P.dtype, P.device)
+    natgrad = _chol_case(torch, chol, linalg, P, jit_ng)
     A = torch.randn((G, M, M), generator=gen, device="cuda")
     Kspd = A @ A.transpose(-1, -2) + M * torch.eye(M, device="cuda")
     spd = _chol_case(torch, chol, linalg, Kspd, jit)
@@ -192,24 +236,47 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries) -> dict:
         return torch.linalg.solve_triangular(
             Lc, torch.eye(M, device="cuda").expand_as(Lc), upper=False)
 
+    def library_ng():
+        Pj = P[None] + jit_ng.reshape(-1, 1, 1, 1) * torch.eye(
+            M, device="cuda")
+        Lc, _ = torch.linalg.cholesky_ex(Pj)
+        return torch.linalg.solve_triangular(
+            Lc, torch.eye(M, device="cuda").expand_as(Lc), upper=False)
+
     ms = time_ms(torch, lambda: chol.chol_inv(Kuu, jit), 50)
     spd_ms = time_ms(torch, lambda: chol.chol_inv(Kspd, jit), 50)
     plain_ms = time_ms(torch, lambda: chol.chol_inv_plain(Kuu, jit), 20)
     library_ms = time_ms(torch, library, 20)
+    floor = launch_floor(torch)
     # the function: G factors and their inverses (K in, L and Linv out,
     # the ladder's jitters in); Cholesky M^3/3 + triangular inverse M^3/3
     b_ms, b_by = bound(bytes_moved=4 * (3 * G * M * M + len(jit)),
                        f32_ops=G * (2.0 / 3.0) * M ** 3)
+    ng_b_ms, ng_b_by = bound(bytes_moved=4 * (3 * M * M + len(jit_ng)),
+                             f32_ops=(2.0 / 3.0) * M ** 3)
+    natgrad.update(
+        shape=f"natgrad P [1,{M},{M}] f32 x {len(jit_ng)} jitter levels",
+        ms=time_ms(torch, lambda: chol.chol_inv(P, jit_ng), 50),
+        plain_ms=time_ms(torch, lambda: chol.chol_inv_plain(P, jit_ng), 20),
+        library_ms=time_ms(torch, library_ng, 20), bound_ms=ng_b_ms,
+        bound_by=ng_b_by)
     return {
         "name": "chol_inv", "route": "cuda",
         "source": "dgps_with_iwvi_torch/csrc/chol_inv.cu",
         "replaces": "dgps_with_iwvi_tpu/ops/pallas/chol.py:101",
         "shape": f"served Kuu [{G},{M},{M}] f32 x {len(jit)} jitter levels",
         "max_abs_err": max(served["max_abs_err_L"],
-                           served["max_abs_err_Linv"]),
-        "max_rel_err": served["max_rel_err"],
+                           served["max_abs_err_Linv"],
+                           natgrad["max_abs_err_L"],
+                           natgrad["max_abs_err_Linv"]),
+        "max_rel_err": max(served["max_rel_err"], natgrad["max_rel_err"]),
         "tol": "m*u*cond(K+jI)*max|plain| at the selected level",
-        "served_kuu": served, "spd": dict(spd, ms=spd_ms),
+        "served_kuu": served, "natgrad_p": natgrad,
+        "one_launch_wall_ms": one_launch_wall_ms(
+            torch, lambda: chol.chol_inv(Kuu, jit)),
+        "empty_kernel_ms": floor["ms"],
+        "empty_kernel_one_launch_wall_ms": floor["one_launch_wall_ms"],
+        "spd": dict(spd, ms=spd_ms),
         "rank_deficient_level": int(lvl[0]),
         "rank_deficient_level_plain": int(lvl_p[0]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -369,6 +436,30 @@ def _bwd_call(qvar, form, A, W, q_mu, g_qv, g_ss, g_mn, cov, plain):
     return f(A, W, g_qv, cov)
 
 
+def _bwd_padded_plain(torch, qvar, form, A, W, q_mu, g_qv, g_ss, g_mn, cov,
+                      m_to=128):
+    """The plain version of K3's inputs zero-padded from M to m_to rows (A,
+    q_mu) and rows and columns (W), its outputs cut back to M: the same
+    function, zero rows adding nothing to any sum. At an M that is not a
+    multiple of 8, cuBLAS takes another kernel for the plain version's bf16
+    products, whose order of sums over M moves some elements of T across a
+    bf16 rounding boundary against K3's (which pads M to 128 with zeros);
+    dt then differs by a bf16 unit there, and dA by up to 5e-4 of its
+    largest value, with K3's earlier five-launch design as with this one
+    (``ab_kernels`` records both)."""
+    F = torch.nn.functional
+    m, p = A.shape[-2], m_to - A.shape[-2]
+    out = _bwd_call(qvar, form, F.pad(A, (0, 0, 0, p)), F.pad(W, (0, p, 0, p)),
+                    F.pad(q_mu, (0, 0, 0, p)), g_qv, g_ss, g_mn, cov,
+                    plain=True)
+    cut = (out[0][..., :m, :], out[1][:, :m, :m])
+    return cut + ((out[2][:m],) if len(out) > 2 else ())
+
+
+def _rel_errs(got, ref) -> list:
+    return [max_err(g, r) / float(r.abs().max()) for g, r in zip(got, ref)]
+
+
 def _bwd_bound(form, L, m, n, d):
     """K3's least time: A, the cotangents, W and q_mu in, dA, dW, dq_mu
     out; 6 L D M^2 N bf16 FLOP of the three products per d, plus the two
@@ -416,23 +507,29 @@ def epilogue_bwd_phase(torch, hopper, gen) -> tuple:
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
             del args, got, ref
             torch.cuda.empty_cache()
-    # M=100: one chunk padded with zeros in the kernel
+    # M=100: one chunk padded with zeros in the kernel, held to the plain
+    # version of the zero-padded inputs (_bwd_padded_plain); the reading
+    # against the unpadded plain version is recorded
     args = _bwd_inputs(torch, gen, L_TRAIN, 100, B_TRAIN, 8, False)
-    m100, _ = _compare(torch, "epilogue_bwd [M=100, epi root D=8]",
-                       _bwd_call(qvar, "epi", *args, False, plain=False),
-                       _bwd_call(qvar, "epi", *args, False, plain=True),
+    got = _bwd_call(qvar, "epi", *args, False, plain=False)
+    m100, _ = _compare(torch, "epilogue_bwd [M=100, epi root D=8]", got,
+                       _bwd_padded_plain(torch, qvar, "epi", *args, False),
                        names["epi"], tol)
+    m100["rel_vs_unpadded_plain"] = _rel_errs(
+        got, _bwd_call(qvar, "epi", *args, False, plain=True))
     # no float atomics: two launches give bitwise-equal sums over the grid
     determinism = {}
-    for cov in (False, True):
-        args = _bwd_inputs(torch, gen, L_TRAIN, M, B_BIG, 8, cov)
-        a = qvar.epi_bwd_fused(*args, cov)
-        b = qvar.epi_bwd_fused(*args, cov)
-        for name, x, y in zip(names["epi"], a, b):
-            if not torch.equal(x, y):
-                fail(f"epilogue_bwd is not deterministic: {name} differs "
-                     f"between two launches (cov={cov})")
-        determinism["cov" if cov else "root"] = "bitwise equal"
+    for n in (B_TRAIN, B_BIG):
+        for cov in (False, True):
+            args = _bwd_inputs(torch, gen, L_TRAIN, M, n, 8, cov)
+            a = qvar.epi_bwd_fused(*args, cov)
+            b = qvar.epi_bwd_fused(*args, cov)
+            for name, x, y in zip(names["epi"], a, b):
+                if not torch.equal(x, y):
+                    fail(f"epilogue_bwd is not deterministic: {name} differs "
+                         f"between two launches (cov={cov}, N={n})")
+            determinism[f"{'cov' if cov else 'root'} N={n}"] = \
+                "bitwise equal"
     rows = [_entry(f"epilogue_bwd:{form}",
                    "dgps_with_iwvi_torch/csrc/epilogue_bwd.cu",
                    K3_REPLACES[form], cases[form],
@@ -1065,11 +1162,18 @@ def train_phase(torch, card: str, profile: bool) -> dict:
     for _ in range(3):                                       # warm-up
         state_b, _ = step_b(state_b, Xb, Yb, gen)
     torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
     state_b, rate_big, losses_b = _steps_per_s(torch, step_b, state_b, Xb,
                                                Yb, gen, BIG_STEPS)
+    counts_b = _path_counts(build)
+    for name, per_step in want.items():
+        if counts_b.get(name, 0) != per_step * BIG_STEPS:
+            fail(f"train B={B_BIG}: {name} launched {counts_b.get(name, 0)} "
+                 f"times in {BIG_STEPS} steps, want {per_step} per step")
     if not bool(torch.isfinite(losses_b).all()):
         fail("train B=8192: a loss is not finite")
     rec.update({"steps_b8192": BIG_STEPS, "steps_per_s_b8192": rate_big,
+                "launches_b8192": counts_b,
                 "peak_mem_gib_b8192":
                 torch.cuda.max_memory_allocated() / 2 ** 30})
     if profile:
@@ -1131,6 +1235,144 @@ def _pallas_train(torch, train, build, config, params, X, Y, tc, idx) -> dict:
     return out
 
 
+AB_ORDER = ("parent", "change", "change", "parent")
+
+
+def _parent_libs(hopper, build, parent: str) -> dict:
+    """K1's and K3's libraries of the tree at `parent`, each built by its
+    own nvcc from that tree's csrc/ into this tree's build directory and
+    bound with this tree's signatures (the C interfaces are the same)."""
+    import ctypes
+
+    sigs = {"chol_inv": hopper.chol.SIGNATURES,
+            "epilogue_bwd": hopper.qvar.BWD_SIGNATURES}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in sigs:
+        out = build.BUILD_DIR / f"ab-parent-lib{name}.so"
+        src = os.path.join(parent, "dgps_with_iwvi_torch", "csrc",
+                           f"{name}.cu")
+        procs[name] = out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc of the parent's {name}.cu:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for fn, (argtypes, restype) in sigs[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    return libs
+
+
+def ab_kernels(torch, hopper, linalg, build, parent: str, model,
+               gen) -> dict:
+    """K1 (served Kuu, natgrad P) and K3 (every form at B=512 and 8192) of
+    the tree at `parent` and of this one, on the same inputs, timed in
+    turns (parent, change, change, parent). The wrappers load a library
+    through ``build.library``, which returns the one loaded under the
+    kernel's name: each turn puts its tree's libraries there."""
+    chol, qvar = hopper.chol, hopper.qvar
+    libs = {"parent": _parent_libs(hopper, build, parent),
+            "change": {"chol_inv": chol._lib(),
+                       "epilogue_bwd": build.library(qvar.BWD_NAME,
+                                                     qvar.BWD_SIGNATURES)}}
+    config, params = model[2], model[3]
+    Kuu = served_kuu(torch, config, params)
+    jit = linalg._jitter_ladder(config.jitter, config.jitter_tries,
+                                Kuu.dtype, Kuu.device)
+    P = natgrad_precision(torch, params, gen)
+    jit_ng = linalg._jitter_ladder(1e-12, 2, P.dtype, P.device)
+    cases = [(f"K1 served Kuu [2,{M},{M}] x {len(jit)} levels",
+              lambda: chol.chol_inv(Kuu, jit), 200),
+             (f"K1 natgrad P [1,{M},{M}] x 2 levels",
+              lambda: chol.chol_inv(P, jit_ng), 200)]
+    for n in (B_TRAIN, B_BIG):
+        for label, form, d, cov in BWD_FORMS:
+            args = _bwd_inputs(torch, gen, L_TRAIN, M, n, d, cov)
+            cases.append((f"K3 {label}, A [{L_TRAIN},{M},{n}]",
+                          lambda f=form, a=args, c=cov: _bwd_call(
+                              qvar, f, *a, c, plain=False), 20))
+    out = {}
+    for label, fn, iters in cases:
+        times = {"parent": [], "change": []}
+        for tree in AB_ORDER:
+            build._libs.update(libs[tree])
+            times[tree].append(time_ms(torch, fn, iters))
+        out[label] = times
+    del cases
+    # K3 at M=100 (epi, root D=8, A [20,100,512]) on three seeds: each
+    # tree's dA, dW, dq_mu against the plain version and against the
+    # plain version of the zero-padded inputs (relative to max|plain|)
+    m100 = []
+    for seed in range(3):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        args = _bwd_inputs(torch, g, L_TRAIN, 100, B_TRAIN, 8, False)
+        ref = _bwd_call(qvar, "epi", *args, False, plain=True)
+        ref_pad = _bwd_padded_plain(torch, qvar, "epi", *args, False)
+        row = {}
+        for tree in ("parent", "change"):
+            build._libs.update(libs[tree])
+            got = _bwd_call(qvar, "epi", *args, False, plain=False)
+            row[tree] = {"vs_plain": _rel_errs(got, ref),
+                         "vs_padded_plain": _rel_errs(got, ref_pad)}
+        m100.append(row)
+    out["K3 M=100 agreement"] = m100
+    build._libs.update(libs["change"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ab_summary(tree: str, profiled: bool, rec: dict) -> dict:
+    """The rates, kernel times and (profiled) device times of one
+    chip_smoke.py record."""
+    tr, ps = rec["train"], rec["pallas_serving"]
+    s = {"tree": tree, "profile": profiled,
+         "steps_per_s_b512": tr["steps_per_s_b512"],
+         "steps_per_s_b8192": tr["steps_per_s_b8192"],
+         "serve_default_points_per_s": ps["serve_pallas"]["points_per_s"],
+         "serve_k2_route_points_per_s": rec["slice"]["points_per_s"],
+         "kernels_ms": {k["name"]: k["ms"] for k in rec["kernels"]}}
+    if profiled:
+        for key in ("profile_b512", "profile_b8192"):
+            p = tr[key]
+            s[key] = {k: p[k] for k in ("device_ms_per_step",
+                                        "wall_ms_per_step", "idle_share",
+                                        "kernel_launches_per_step")}
+            s[key]["kernels"] = p["kernels_ms_per_step"][:12]
+        sp = ps["serve_pallas"]["profile"]
+        s["profile_serve_default"] = {
+            "device_ms_per_request": sp["device_ms_per_request"],
+            "kernels": sp["kernels_ms_per_request"][:8]}
+    return s
+
+
+def ab_runs(parent: str, out_dir: str) -> list:
+    """Both trees' chip_smoke.py whole, each in its own process, in turns
+    (parent, change, change, parent), then each once with --profile."""
+    trees = {"parent": os.path.abspath(parent),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    plan = [(t, False) for t in AB_ORDER] + [("parent", True),
+                                             ("change", True)]
+    runs = []
+    for i, (tree, profiled) in enumerate(plan):
+        rec_dir = os.path.abspath(os.path.join(
+            out_dir, f"run{i}_{tree}" + ("_profile" if profiled else "")))
+        cmd = [sys.executable, os.path.join(trees[tree], "chip_smoke.py"),
+               "--out", rec_dir] + (["--profile"] if profiled else [])
+        proc = subprocess.run(cmd, cwd=trees[tree], capture_output=True,
+                              text=True, timeout=1200)
+        if proc.returncode != 0:
+            fail(f"chip_smoke.py of the {tree} tree failed:\n"
+                 f"{proc.stderr[-3000:]}")
+        with open(os.path.join(rec_dir, "chip_smoke.json")) as f:
+            runs.append(_ab_summary(tree, profiled, json.load(f)))
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the record to DIR/"
@@ -1139,7 +1381,14 @@ def main() -> int:
                     help="also trace two served requests per serving "
                     "route and five training steps with torch.profiler and "
                     "record device time by kernel and the idle share")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="instead of the smoke run, time this tree against "
+                    "the checkout at PARENT on one card: K1 and K3 in turns "
+                    "on the same inputs, then both trees' chip_smoke.py in "
+                    "turns; needs --out (DIR/ab.json)")
     opts = ap.parse_args()
+    if opts.ab and not opts.out:
+        ap.error("--ab needs --out")
 
     import torch
     if not torch.cuda.is_available():
@@ -1179,9 +1428,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = served_model(torch)
     config = model[2]
+    if opts.ab:
+        ab = {"card": card, "kernels": ab_kernels(torch, hopper, linalg,
+                                                  build, opts.ab, model, gen)}
+        print("ab kernels: " + json.dumps(ab["kernels"]))
+        del model
+        torch.cuda.empty_cache()
+        ab["runs"] = ab_runs(opts.ab, opts.out)
+        print("ab runs: " + json.dumps(ab["runs"]))
+        os.makedirs(opts.out, exist_ok=True)
+        with open(os.path.join(opts.out, "ab.json"), "w") as f:
+            json.dump(ab, f, indent=1)
+        print(card)
+        return 0
     k1 = chol_phase(torch, hopper, linalg, gen,
                     served_kuu(torch, config, model[3]), config.jitter,
-                    config.jitter_tries)
+                    config.jitter_tries,
+                    natgrad_precision(torch, model[3], gen))
     k2 = epilogue_phase(torch, hopper, gen)
     k3, rec["epilogue_bwd_checks"] = epilogue_bwd_phase(torch, hopper, gen)
     k45, rec["fused_checks"] = fused_phase(torch, hopper, gen)
@@ -1196,6 +1459,7 @@ def main() -> int:
         print("profile: " + json.dumps(rec["profile"]))
     paths = {"serve": rec["slice"]["launches"],
              "train": rec["train"]["launches"],
+             "train_b8192": rec["train"]["launches_b8192"],
              "serve_pallas": rec["pallas_serving"]["serve_pallas"]["launches"],
              "predict_use_pallas":
                  rec["pallas_serving"]["use_pallas"]["launches"],

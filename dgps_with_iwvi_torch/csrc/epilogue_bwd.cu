@@ -19,29 +19,27 @@
 // hi*hi + hi*lo + lo*hi, as `_dot3` (qvar.py:402) does.
 //
 // What bounds it on the H100: 6 L D M^2 N bf16 tensor-core FLOP against
-// reading A and writing dA. At the flagship training shape (L=20, M=128,
-// N=512) the D=8 inner layer is 8.1e9 FLOP, 8 us at 989 TF/s, and its
-// bytes take 4 us: far below a launch's latency, so the design aims at
-// being right and deterministic, not at the roofline (wgmma and TMA come
-// later).
+// reading A and writing dA (0.132 ms at L=20, M=128, N=8192, D=8).
 //
-// Design. The TPU summed dW and dq_mu over its sequential grid in one VMEM
-// block. Blocks on the card run in no order, and float atomics would make
-// the sum change from run to run, so the sums are in three passes, each
-// in a fixed order:
-//   1. dA: one block per (l, 128-column tile). It owns its dA tile, so it
-//      writes it once, no reduction across blocks. Each of the 8 warps owns
-//      16 columns and all rows of a 128-row chunk of the product, as in
-//      epilogue.cu. For the root form T is recomputed per d in registers,
-//      dt is rounded into shared memory (the warp's own columns) and fed
-//      back to the tensor cores. The block also writes its partial
-//      dq_mu [M, D] over its 128 columns.
-//   2. dW: one block per (s, 128x128 block of dW_d, d). Block s takes the
-//      column tiles s, s + S, s + 2S, ... in order, recomputes dt (root) or
-//      ga (cov) per tile and accumulates its dW block in registers, then
-//      writes it as partial s. S is sized to fill the card once.
-//   3. A fixed-order sum of the S partials of dW and of pass 1's dq_mu
-//      partials.
+// Design: two launches, every sum in a fixed order (no float atomics), so
+// dA, dW and dq_mu are bitwise repeatable.
+//   1. One block per (l, 128-column tile), 8 warps, each warp a 64 x 32
+//      tile of every 128 x 128 product. A's tile is read once, rounded to
+//      bf16 into shared memory and into a bf16 copy in the scratch. W_d's
+//      128 x 128 block is copied as f32 into a staging buffer with cp.async
+//      while the block works on d - 1, then rounded to bf16 into shared
+//      memory once and read by ldmatrix both as W_d and as W_d^T (.trans).
+//      T and dt (or ga) stay in registers and shared memory; dt / ga goes
+//      to the scratch once, so pass 2 never recomputes T. The block owns its
+//      dA tile and writes it once, and writes its partial dq_mu [M, D]
+//      (bf16x3 on the tensor cores).
+//   2. dW_d = sum over (l, n) of a dt^T (root) or ga a^T (cov): a split-K
+//      product over L * N, slice s of S summed by one block in a 3-stage
+//      cp.async ring, two blocks per SM. Each block writes its partial;
+//      the last block of each (d, output block) to finish (a ticket counter)
+//      sums the S partials in the order s = 0..S-1, so the arrival order
+//      does not enter the result. A few blocks of the same launch sum the
+//      dq_mu partials in tile order.
 // M is worked through in chunks of 128 rows, padded with zeros in the
 // kernel (zero rows of A and W add nothing to any sum), and a ragged last
 // column tile is padded with zeros, so every M, D and N is taken.
@@ -54,25 +52,76 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTN = 128;             // columns per tile
-constexpr int kWN = kTN / kWarps;    // columns per warp: two n8 tiles
-constexpr int kLDA = kTN + 4;        // f32 row stride of the shared A chunk
-constexpr int kC = 128;              // rows per chunk of M
-constexpr int kLDW = kC + 8;         // bf16 row stride of W / dt blocks
-constexpr int kT = kC / 16;          // m16 tiles / k16 steps per chunk
-constexpr int kWaveBlocks = 132;     // pass 2 fills the H100's SMs once
+typedef __nv_bfloat16 bf16;
 
-typedef float Acc[kT][2][4];         // [m tile][n8 tile][mma C fragment]
-typedef uint32_t Frag[kT][2][2];     // [k step][n8 tile][mma B fragment]
+constexpr int kThreads = 256;
+constexpr int kTN = 128;          // columns per tile (pass 1)
+constexpr int kC = 128;           // rows per chunk of M
+constexpr int kLD = kTN + 8;      // bf16 row stride of 128-wide tiles (272 B)
+constexpr int kDC = 16;           // d per chunk of the mean terms
+constexpr int kLDQ = kDC + 8;     // bf16 row stride of the q_mu split
+constexpr int kBK = 64;           // k per stage (pass 2)
+constexpr int kLDK = kBK + 8;     // bf16 row stride of a pass-2 stage
+constexpr int kStages = 3;
+constexpr int kMaxSlices = 32;
+
+typedef float Acc[4][4][4];       // warp tile 64 x 32: [m16][n8][fragment]
 
 __host__ __device__ constexpr int padded_m(int m) {
   return (m + kC - 1) / kC * kC;
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// ---- PTX wrappers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -80,512 +129,624 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ---- tensor-core tiles -----------------------------------------------------
+
+// A operand (16 x 16 at rows m0, depth k0) of X stored [m][k] (kT false)
+// or [k][m] (kT true).
+template <bool kT>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* X,
+                                       int ld, int m0, int k0, int lane) {
+  if (!kT)
+    ldsm_x4(a, X + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  else
+    ldsm_x4_t(a, X + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 +
+                     ((lane >> 3) & 1) * 8);
+}
+
+// B operands of the two n8 tiles at columns n0 and n0 + 8, depth k0..k0+15,
+// of Y stored [n][k] (kT false) or [k][n] (kT true): b[0], b[1] of the
+// first tile, b[2], b[3] of the second.
+template <bool kT>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* Y,
+                                       int ld, int n0, int k0, int lane) {
+  if (!kT)
+    ldsm_x4(b, Y + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                   ((lane >> 3) & 1) * 8);
+  else
+    ldsm_x4_t(b, Y + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+                     (lane >> 4) * 8);
+}
+
+// acc (the warp's 64 x 32 tile at (wm, wn)) += X Y over depth [0, K).
+template <bool kTA, bool kTB, int K>
+__device__ __forceinline__ void warp_mma(Acc& acc, const bf16* X, int ldx,
+                                         const bf16* Y, int ldy, int wm,
+                                         int wn, int lane) {
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4][4], b[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      load_a<kTA>(a[mt], X, ldx, wm + mt * 16, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 2; ++np)
+      load_b<kTB>(b[np], Y, ldy, wn + np * 16, k0, lane);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+                 b[nt >> 1][(nt & 1) * 2 + 1]);
+  }
 }
 
 __device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
-  for (int mt = 0; mt < kT; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
 }
 
-// Wop[t, d, m, k] = bf16(t == 0 ? W[d, m, k] : W[d, k, m]) for m, k < M,
-// zero up to padded_m(M): W_d and W_d^T as row-major "A" operands.
-__global__ void prep_w_kernel(const float* __restrict__ W,
-                              __nv_bfloat16* __restrict__ Wop, int D, int M) {
-  const int Mp = padded_m(M);
-  const size_t per = (size_t)D * Mp * Mp;
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-       idx < 2 * per; idx += (size_t)gridDim.x * blockDim.x) {
-    const int t = (int)(idx / per);
-    const size_t rest = idx % per;
-    const int k = (int)(rest % Mp);
-    const size_t dm = rest / Mp;
-    const int m = (int)(dm % Mp);
-    const int d = (int)(dm / Mp);
-    float v = 0.0f;
-    if (m < M && k < M)
-      v = t == 0 ? W[((size_t)d * M + m) * M + k]
-                 : W[((size_t)d * M + k) * M + m];
-    Wop[idx] = __float2bfloat16_rn(v);
-  }
-}
-
-// As[r, j] = A_l[kc * kC + r, n0 + j], zeros past M and N.
-__device__ __forceinline__ void load_a_chunk(float* As, const float* Al,
-                                             int kc, int M, int N, int n0) {
-  for (int idx = threadIdx.x; idx < kC * kTN; idx += kThreads) {
-    const int r = idx / kTN, j = idx % kTN;
-    const int m = kc * kC + r, n = n0 + j;
-    As[r * kLDA + j] = (m < M && n < N) ? Al[(size_t)m * N + n] : 0.0f;
-  }
-}
-
-// Ws = the (rc, cc) 128x128 block of Wop[t, d].
-__device__ __forceinline__ void load_w_block(__nv_bfloat16* Ws,
-                                             const __nv_bfloat16* Wop, int t,
-                                             int d, int D, int Mp, int rc,
-                                             int cc) {
-  constexpr int kRowVec = kC * 2 / 16;  // uint4 per row of a block
-  const uint4* src = reinterpret_cast<const uint4*>(
-      Wop + (((size_t)t * D + d) * Mp + (size_t)rc * kC) * Mp +
-      (size_t)cc * kC);
-  uint4* dst = reinterpret_cast<uint4*>(Ws);
-  for (int v = threadIdx.x; v < kC * kRowVec; v += kThreads) {
-    const int r = v / kRowVec, c = v % kRowVec;
-    dst[r * (kLDW * 2 / 16) + c] = src[(size_t)r * (Mp * 2 / 16) + c];
-  }
-}
-
-// Gs[j] = g[n0 + j], zeros past N.
-__device__ __forceinline__ void load_g(float* Gs, const float* g, int N,
-                                       int n0) {
-  for (int j = threadIdx.x; j < kTN; j += kThreads)
-    Gs[j] = n0 + j < N ? g[n0 + j] : 0.0f;
-}
-
-// B fragments of the warp's 16 columns of a K x N operand held row-major in
-// f32 shared memory (rows k, columns n), scaled per column by Gs (or not):
-// b0 = (B[k][col], B[k+1][col]), b1 = rows +8.
-__device__ __forceinline__ void frag_from_f32(Frag& b, const float* Xs,
-                                              const float* Gs, int wc,
-                                              int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int kt = 0; kt < kT; ++kt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = wc + nt * 8 + g;
-      const int k = kt * 16 + t4 * 2;
-      const float s = Gs != nullptr ? Gs[col] : 1.0f;
-      b[kt][nt][0] = pack_bf16(Xs[k * kLDA + col] * s,
-                               Xs[(k + 1) * kLDA + col] * s);
-      b[kt][nt][1] = pack_bf16(Xs[(k + 8) * kLDA + col] * s,
-                               Xs[(k + 9) * kLDA + col] * s);
-    }
-}
-
-// The same from bf16 shared memory (rows k, columns n, stride kLDW).
-__device__ __forceinline__ void frag_from_bf16(Frag& b,
-                                               const __nv_bfloat16* Xs,
-                                               int wc, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int kt = 0; kt < kT; ++kt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = wc + nt * 8 + g;
-      const int k = kt * 16 + t4 * 2;
-      __nv_bfloat162 v0, v1;
-      v0.x = Xs[k * kLDW + col];
-      v0.y = Xs[(k + 1) * kLDW + col];
-      v1.x = Xs[(k + 8) * kLDW + col];
-      v1.y = Xs[(k + 9) * kLDW + col];
-      b[kt][nt][0] = *reinterpret_cast<uint32_t*>(&v0);
-      b[kt][nt][1] = *reinterpret_cast<uint32_t*>(&v1);
-    }
-}
-
-// acc[rows, warp's columns] += Ws (128 x 128, bf16 row-major) x b.
-__device__ __forceinline__ void mma_block(Acc& acc, const __nv_bfloat16* Ws,
-                                          const Frag& b, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int kt = 0; kt < kT; ++kt)
-#pragma unroll
-    for (int mt = 0; mt < kT; ++mt) {
-      const __nv_bfloat16* w0 = Ws + (mt * 16 + g) * kLDW + kt * 16 + t4 * 2;
-      const __nv_bfloat16* w8 = w0 + 8 * kLDW;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(w0);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(w8);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(w0 + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(w8 + 8);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        mma_bf16(acc[mt][nt], a0, a1, a2, a3, b[kt][nt][0], b[kt][nt][1]);
-    }
-}
-
-// acc += X b, X (128 x 128) read row-major from f32 shared memory (rows,
-// columns k) and rounded to bf16, each column k scaled by Gs (or not).
-__device__ __forceinline__ void mma_block_f32(Acc& acc, const float* Xs,
-                                              const float* Gs, const Frag& b,
-                                              int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int kt = 0; kt < kT; ++kt) {
-    const int k = kt * 16 + t4 * 2;
-    float s[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-    if (Gs != nullptr) {
-      s[0] = Gs[k];
-      s[1] = Gs[k + 1];
-      s[2] = Gs[k + 8];
-      s[3] = Gs[k + 9];
-    }
-#pragma unroll
-    for (int mt = 0; mt < kT; ++mt) {
-      const float* x0 = Xs + (mt * 16 + g) * kLDA + k;
-      const float* x8 = x0 + 8 * kLDA;
-      const uint32_t a0 = pack_bf16(x0[0] * s[0], x0[1] * s[1]);
-      const uint32_t a1 = pack_bf16(x8[0] * s[0], x8[1] * s[1]);
-      const uint32_t a2 = pack_bf16(x0[8] * s[2], x0[9] * s[3]);
-      const uint32_t a3 = pack_bf16(x8[8] * s[2], x8[9] * s[3]);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        mma_bf16(acc[mt][nt], a0, a1, a2, a3, b[kt][nt][0], b[kt][nt][1]);
-    }
-  }
-}
-
-// Ds[row, col] = bf16(2 g[col] T[row, col]) for the warp's own columns.
-__device__ __forceinline__ void store_dt(__nv_bfloat16* Ds, const Acc& T,
-                                         const float* Gs, int wc, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int c0 = wc + nt * 8 + t4 * 2;
-    const float g0 = 2.0f * Gs[c0], g1 = 2.0f * Gs[c0 + 1];
-#pragma unroll
-    for (int mt = 0; mt < kT; ++mt) {
-      const int r0 = mt * 16 + g, r1 = r0 + 8;
-      Ds[r0 * kLDW + c0] = __float2bfloat16_rn(g0 * T[mt][nt][0]);
-      Ds[r0 * kLDW + c0 + 1] = __float2bfloat16_rn(g1 * T[mt][nt][1]);
-      Ds[r1 * kLDW + c0] = __float2bfloat16_rn(g0 * T[mt][nt][2]);
-      Ds[r1 * kLDW + c0 + 1] = __float2bfloat16_rn(g1 * T[mt][nt][3]);
-    }
-  }
-}
+// ---- pass 1: dA per (l, column tile), dt / ga and bf16(A) to the scratch,
+// the tile's partial dq_mu ---------------------------------------------------
 
 struct Smem {
-  float* As;            // [kC][kLDA] a chunk of A's tile, f32
-  __nv_bfloat16* Ws;    // [kC][kLDW] a block of W_d or W_d^T
-  __nv_bfloat16* Ds;    // [kC][kLDW] dt (root form)
-  float* Gs;            // [kTN] the tile's g_d
+  bf16* A16;   // [kC][kLD] a chunk of A's tile, bf16
+  bf16* Ds;    // [kC][kLD] dt or ga (also A's low half for dq_mu)
+  bf16* W16;   // [kC][kLD] a block of W_d, bf16
+  bf16* Qh;    // [kC][kLDQ] q_mu's high half (rows of a chunk, 16 d)
+  bf16* Ql;    //            and low half
+  bf16* Gh;    // [kDC][kLD] g_mn's high half (16 d, the tile's columns)
+  bf16* Gl;    //            and low half
+  float* Wst;  // [kC][kC] the next W block, f32, copied by cp.async
+  float* Gs;   // [kTN] the tile's g_d
 };
+
+constexpr size_t kTileBytes = (size_t)kC * kLD * sizeof(bf16);
+constexpr size_t kSmem1 = 3 * kTileBytes +
+                          2 * (size_t)kC * kLDQ * sizeof(bf16) +
+                          2 * (size_t)kDC * kLD * sizeof(bf16) +
+                          (size_t)kC * kC * sizeof(float) +
+                          (size_t)kTN * sizeof(float);
 
 __device__ __forceinline__ Smem carve(unsigned char* raw) {
   Smem s;
-  s.As = reinterpret_cast<float*>(raw);
-  s.Ws = reinterpret_cast<__nv_bfloat16*>(s.As + kC * kLDA);
-  s.Ds = s.Ws + kC * kLDW;
-  s.Gs = reinterpret_cast<float*>(s.Ds + kC * kLDW);
+  s.A16 = reinterpret_cast<bf16*>(raw);
+  s.Ds = s.A16 + kC * kLD;
+  s.W16 = s.Ds + kC * kLD;
+  s.Qh = s.W16 + kC * kLD;
+  s.Ql = s.Qh + kC * kLDQ;
+  s.Gh = s.Ql + kC * kLDQ;
+  s.Gl = s.Gh + kDC * kLD;
+  s.Wst = reinterpret_cast<float*>(s.Gl + kDC * kLD);
+  s.Gs = s.Wst + kC * kC;
   return s;
 }
 
-constexpr size_t kSmem = (size_t)kC * kLDA * sizeof(float) +
-                         2 * (size_t)kC * kLDW * sizeof(__nv_bfloat16) +
-                         (size_t)kTN * sizeof(float);
-
-// ---- pass 1: dA per (l, column tile), and the tile's partial dq_mu --------
-__global__ void __launch_bounds__(kThreads, 1)
-dA_kernel(const float* __restrict__ A, const __nv_bfloat16* __restrict__ Wop,
-          const float* __restrict__ qmu, const float* __restrict__ gqv,
-          const float* __restrict__ gss, const float* __restrict__ gmn,
-          float* __restrict__ dA, float* __restrict__ dqmu_part, int l0,
-          int M, int D, int N, int cov) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw);
-  const int Mp = padded_m(M);
-  const int C = Mp / kC;
-  const int l = l0 + blockIdx.y;
-  const int tiles = gridDim.x;
-  const int n0 = blockIdx.x * kTN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wc = warp * kWN;
-  const float* Al = A + (size_t)l * M * N;
-  int resident = -1;  // the chunk of A in As (the same in every thread)
-
-  // the tile's partial dq_mu[m, d] = sum_n a[m, n] g_mn[d, n], bf16x3
-  if (qmu != nullptr) {
-    for (int kc = 0; kc < C; ++kc) {
-      __syncthreads();
-      load_a_chunk(sm.As, Al, kc, M, N, n0);
-      resident = kc;
-      __syncthreads();
-      const int rows = min(kC, M - kc * kC);
-      for (int idx = tid; idx < rows * D; idx += kThreads) {
-        const int r = idx / D, d = idx % D;
-        const float* gm = gmn + ((size_t)l * D + d) * N + n0;
-        float hh = 0.0f, hl = 0.0f, lh = 0.0f;
-        for (int j = 0; j < kTN && n0 + j < N; ++j) {
-          const float a = sm.As[r * kLDA + j];
-          const float ah = round_bf16(a), al = round_bf16(a - ah);
-          const float v = gm[j];
-          const float vh = round_bf16(v), vl = round_bf16(v - vh);
-          hh = fmaf(ah, vh, hh);
-          hl = fmaf(ah, vl, hl);
-          lh = fmaf(al, vh, lh);
+// Rows [m0, m0 + 128) x columns [n0, n0 + 128) of X [M, N] (f32), zeros
+// past M and N, times scale[c] where given: rounded to bf16 into hi (smem),
+// the remainder x - hi rounded into lo (where given), and hi into gdst (row
+// stride ldg, where given).
+__device__ __forceinline__ void load_tile(bf16* hi, bf16* lo, bf16* gdst,
+                                          size_t ldg, const float* X, int m0,
+                                          int M, int n0, int N,
+                                          const float* scale) {
+  const bool vec = (N & 3) == 0;
+#pragma unroll 4
+  for (int i = 0; i < kC * kTN / 4 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx >> 5, c = (idx & 31) << 2;
+    const int m = m0 + r, n = n0 + c;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (m < M) {
+      const float* src = X + (size_t)m * N + n;
+      if (vec) {
+        if (n < N) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+          v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
         }
-        const size_t blk = (size_t)l * tiles + blockIdx.x;
-        dqmu_part[(blk * M + kc * kC + r) * D + d] = (hh + hl) + lh;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) v[e] = __ldg(src + e);
       }
     }
+    if (scale != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] *= scale[c + e];
+    }
+    const uint2 h = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    *reinterpret_cast<uint2*>(hi + r * kLD + c) = h;
+    if (gdst != nullptr)
+      *reinterpret_cast<uint2*>(gdst + (size_t)r * ldg + c) = h;
+    if (lo != nullptr) {
+      float w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e] = v[e] - round_bf16(v[e]);
+      *reinterpret_cast<uint2*>(lo + r * kLD + c) =
+          make_uint2(pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]));
+    }
   }
+}
 
-  Frag b;
+// gdst [128 rows, stride ldg] = the 128 x 128 bf16 tile src.
+__device__ __forceinline__ void store_tile(bf16* gdst, size_t ldg,
+                                           const bf16* src) {
+#pragma unroll
+  for (int i = 0; i < kC * kTN / 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx >> 4, c = (idx & 15) << 3;
+    *reinterpret_cast<uint4*>(gdst + (size_t)r * ldg + c) =
+        *reinterpret_cast<const uint4*>(src + r * kLD + c);
+  }
+}
+
+// Qh/Ql [r][j] = split(q_mu[m0 + r, d0 + j]), zeros past M and D.
+__device__ __forceinline__ void load_q_split(const Smem& sm, const float* qmu,
+                                             int m0, int M, int d0, int D) {
+  for (int idx = threadIdx.x; idx < kC * kDC; idx += kThreads) {
+    const int r = idx >> 4, j = idx & (kDC - 1);
+    const int m = m0 + r, d = d0 + j;
+    const float v = (m < M && d < D) ? qmu[(size_t)m * D + d] : 0.0f;
+    const bf16 h = __float2bfloat16_rn(v);
+    sm.Qh[r * kLDQ + j] = h;
+    sm.Ql[r * kLDQ + j] = __float2bfloat16_rn(v - __bfloat162float(h));
+  }
+}
+
+// Gh/Gl [j][c] = split(g_mn_l[d0 + j, n0 + c]), zeros past D and N.
+__device__ __forceinline__ void load_g_split(const Smem& sm, const float* gm,
+                                             int d0, int D, int n0, int N) {
+  for (int idx = threadIdx.x; idx < kDC * kTN; idx += kThreads) {
+    const int j = idx >> 7, c = idx & (kTN - 1);
+    const int d = d0 + j, n = n0 + c;
+    const float v = (d < D && n < N) ? gm[(size_t)d * N + n] : 0.0f;
+    const bf16 h = __float2bfloat16_rn(v);
+    sm.Gh[j * kLD + c] = h;
+    sm.Gl[j * kLD + c] = __float2bfloat16_rn(v - __bfloat162float(h));
+  }
+}
+
+// The W block cache: W16 holds block `have` (bf16), Wst receives block
+// `staged` (f32, in flight). A tag is (d * C + block row) * C + block column.
+struct WCache {
+  int have = -1, staged = -1;
+};
+
+// cp.async of W_d's (br, bc) 128 x 128 block into Wst, zeros past M.
+__device__ __forceinline__ void w_issue(float* Wst, const float* W, int M,
+                                        int C, int tag) {
+  const int d = tag / (C * C), rest = tag % (C * C);
+  const int br = rest / C, bc = rest % C;
+  const float* Wd = W + (size_t)d * M * M;
+  if ((M & 3) == 0) {
+    for (int idx = threadIdx.x; idx < kC * kC / 4; idx += kThreads) {
+      const int r = idx >> 5, c = (idx & 31) << 2;
+      const int m = br * kC + r, k = bc * kC + c;
+      const int bytes = m < M ? min(max((M - k) * 4, 0), 16) : 0;
+      const float* src = bytes > 0 ? Wd + (size_t)m * M + k : W;
+      cp_async16(Wst + r * kC + c, src, bytes);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kC * kC; idx += kThreads) {
+      const int r = idx >> 7, c = idx & (kC - 1);
+      const int m = br * kC + r, k = bc * kC + c;
+      const bool in = m < M && k < M;
+      cp_async4(Wst + r * kC + c, in ? Wd + (size_t)m * M + k : W,
+                in ? 4 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// Make W16 hold block `tag`: wait for it in Wst (issuing it first unless
+// prefetched), round to bf16. Called by every thread alike.
+__device__ __forceinline__ void w_acquire(const Smem& sm, WCache& wc,
+                                          const float* W, int M, int C,
+                                          int tag) {
+  if (tag == wc.have) return;
+  if (tag != wc.staged) {
+    cp_async_wait<0>();
+    __syncthreads();  // nobody reads Wst any more
+    w_issue(sm.Wst, W, M, C, tag);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Wst complete for every thread; W16 no longer read
+  for (int idx = threadIdx.x; idx < kC * kC / 4; idx += kThreads) {
+    const int r = idx >> 5, c = (idx & 31) << 2;
+    const float4 v = *reinterpret_cast<const float4*>(sm.Wst + r * kC + c);
+    *reinterpret_cast<uint2*>(sm.W16 + r * kLD + c) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+  __syncthreads();
+  wc.have = tag;
+  wc.staged = -1;
+}
+
+// Start copying block `tag` into Wst while W16 is in use.
+__device__ __forceinline__ void w_prefetch(const Smem& sm, WCache& wc,
+                                           const float* W, int M, int C,
+                                           int tag) {
+  if (wc.staged != -1 || tag == wc.have) return;
+  w_issue(sm.Wst, W, M, C, tag);
+  wc.staged = tag;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+pass1_kernel(const float* __restrict__ A, const float* __restrict__ W,
+             const float* __restrict__ qmu, const float* __restrict__ gqv,
+             const float* __restrict__ gss, const float* __restrict__ gmn,
+             float* __restrict__ dA, bf16* __restrict__ A16g,
+             bf16* __restrict__ Rg, float* __restrict__ dq_part,
+             unsigned* __restrict__ counters, int n_counters, int l0, int L,
+             int M, int D, int N, int cov) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
+  const int Mp = padded_m(M), C = Mp / kC;
+  const int tiles = gridDim.x, Np = tiles * kTN;
+  const int nt_idx = blockIdx.x, l = l0 + blockIdx.y;
+  const int n0 = nt_idx * kTN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const float* Al = A + (size_t)l * M * N;
+  const bool mean = qmu != nullptr;
+  const int dchunks = (D + kDC - 1) / kDC;
+
+  if (l0 == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+    for (int i = tid; i < n_counters; i += kThreads) counters[i] = 0u;
+
+  // every chunk of A's tile: bf16 copy to the scratch, partial dq_mu
+  int resident = -1;
+  for (int kc = 0; kc < C; ++kc) {
+    __syncthreads();  // A16 and Ds free
+    load_tile(sm.A16, mean ? sm.Ds : nullptr,
+              A16g + ((size_t)l * Mp + kc * kC) * Np + n0, Np, Al, kc * kC,
+              M, n0, N, nullptr);
+    resident = kc;
+    if (!mean) continue;
+    for (int dc = 0; dc < dchunks; ++dc) {
+      __syncthreads();  // the tile is in; Gh/Gl free
+      load_g_split(sm, gmn + (size_t)l * D * N, dc * kDC, D, n0, N);
+      __syncthreads();
+      // dq[m, d] = sum_n a[m, n] g_mn[d, n]: warp w takes rows 16 w
+      float acc[2][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < kTN; k0 += 16) {
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        load_a<false>(ah, sm.A16, kLD, warp * 16, k0, lane);
+        load_a<false>(al, sm.Ds, kLD, warp * 16, k0, lane);
+        load_b<false>(bh, sm.Gh, kLD, 0, k0, lane);
+        load_b<false>(bl, sm.Gl, kLD, 0, k0, lane);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16(acc[nt], ah, bh[2 * nt], bh[2 * nt + 1]);
+          mma_bf16(acc[nt], ah, bl[2 * nt], bl[2 * nt + 1]);
+          mma_bf16(acc[nt], al, bh[2 * nt], bh[2 * nt + 1]);
+        }
+      }
+      float* out = dq_part + ((size_t)l * tiles + nt_idx) * M * D;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = kc * kC + warp * 16 + g + (q >> 1) * 8;
+          const int d = dc * kDC + nt * 8 + t4 * 2 + (q & 1);
+          if (m < M && d < D) out[(size_t)m * D + d] = acc[nt][q];
+        }
+    }
+  }
+  __syncthreads();
+
+  WCache wc;
+  auto tag = [C](int d, int br, int bc) { return (d * C + br) * C + bc; };
+  auto ensure_a = [&](int kc) {
+    if (kc == resident) return;
+    __syncthreads();
+    load_tile(sm.A16, nullptr, nullptr, 0, Al, kc * kC, M, n0, N, nullptr);
+    resident = kc;
+    __syncthreads();
+  };
+
   for (int r = 0; r < C; ++r) {  // the 128-row chunk of dA
     Acc accD;
     zero(accD);
+    if (mean) {  // q_mu g_mn at bf16x3
+      for (int dc = 0; dc < dchunks; ++dc) {
+        __syncthreads();
+        load_q_split(sm, qmu, r * kC, M, dc * kDC, D);
+        load_g_split(sm, gmn + (size_t)l * D * N, dc * kDC, D, n0, N);
+        __syncthreads();
+        warp_mma<false, true, kDC>(accD, sm.Qh, kLDQ, sm.Gh, kLD, wm, wn,
+                                   lane);
+        warp_mma<false, true, kDC>(accD, sm.Qh, kLDQ, sm.Gl, kLD, wm, wn,
+                                   lane);
+        warp_mma<false, true, kDC>(accD, sm.Ql, kLDQ, sm.Gh, kLD, wm, wn,
+                                   lane);
+      }
+    }
     for (int d = 0; d < D; ++d) {
       const float* gq = gqv + ((size_t)l * D + d) * N;
-      if (cov) {
+      __syncthreads();  // Gs free
+      for (int j = tid; j < kTN; j += kThreads)
+        sm.Gs[j] = n0 + j < N ? gq[n0 + j] : 0.0f;
+      const bool next = C == 1 && d + 1 < D;
+      if (!cov) {
+        for (int mc = 0; mc < C; ++mc) {
+          // T = rows mc of W_d^T a: W_d's (kc, mc) blocks, read transposed
+          Acc accT;
+          zero(accT);
+          for (int kc = 0; kc < C; ++kc) {
+            ensure_a(kc);
+            w_acquire(sm, wc, W, M, C, tag(d, kc, mc));
+            if (next) w_prefetch(sm, wc, W, M, C, tag(d + 1, 0, 0));
+            warp_mma<true, true, kC>(accT, sm.W16, kLD, sm.A16, kLD, wm, wn,
+                                     lane);
+          }
+          __syncthreads();  // Ds no longer read; Gs written
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int row = wm + mt * 16 + g, col = wn + nt * 8 + t4 * 2;
+              const float s0 = 2.0f * sm.Gs[col], s1 = 2.0f * sm.Gs[col + 1];
+              *reinterpret_cast<uint32_t*>(sm.Ds + row * kLD + col) =
+                  pack_bf16(s0 * accT[mt][nt][0], s1 * accT[mt][nt][1]);
+              *reinterpret_cast<uint32_t*>(sm.Ds + (row + 8) * kLD + col) =
+                  pack_bf16(s0 * accT[mt][nt][2], s1 * accT[mt][nt][3]);
+            }
+          __syncthreads();
+          if (r == 0)
+            store_tile(Rg + (((size_t)d * L + l) * Mp + mc * kC) * Np + n0,
+                       Np, sm.Ds);
+          // dA += W_d's (r, mc) block times dt
+          w_acquire(sm, wc, W, M, C, tag(d, r, mc));
+          warp_mma<false, true, kC>(accD, sm.W16, kLD, sm.Ds, kLD, wm, wn,
+                                    lane);
+        }
+      } else {
         // g_d (W_d a): W_d's (r, kc) blocks against a
         Acc accS;
         zero(accS);
         for (int kc = 0; kc < C; ++kc) {
-          __syncthreads();
-          if (kc != resident) {
-            load_a_chunk(sm.As, Al, kc, M, N, n0);
-            resident = kc;
-          }
-          load_w_block(sm.Ws, Wop, 0, d, D, Mp, r, kc);
-          if (kc == 0) load_g(sm.Gs, gq, N, n0);
-          __syncthreads();
-          frag_from_f32(b, sm.As, nullptr, wc, lane);
-          mma_block(accS, sm.Ws, b, lane);
+          ensure_a(kc);
+          w_acquire(sm, wc, W, M, C, tag(d, r, kc));
+          if (next) w_prefetch(sm, wc, W, M, C, tag(d + 1, 0, 0));
+          warp_mma<false, true, kC>(accS, sm.W16, kLD, sm.A16, kLD, wm, wn,
+                                    lane);
         }
+        __syncthreads();  // Gs written
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int c0 = wc + nt * 8 + t4 * 2;
-          const float g0 = sm.Gs[c0], g1 = sm.Gs[c0 + 1];
+        for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-          for (int mt = 0; mt < kT; ++mt) {
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = wn + nt * 8 + t4 * 2;
+            const float g0 = sm.Gs[col], g1 = sm.Gs[col + 1];
             accD[mt][nt][0] += g0 * accS[mt][nt][0];
             accD[mt][nt][1] += g1 * accS[mt][nt][1];
             accD[mt][nt][2] += g0 * accS[mt][nt][2];
             accD[mt][nt][3] += g1 * accS[mt][nt][3];
           }
-        }
-        // W_d^T ga, ga = bf16(a g_d): W_d^T's (r, kc) blocks
+        // W_d^T ga, ga = bf16(a g_d): W_d's (kc, r) blocks, read transposed
         for (int kc = 0; kc < C; ++kc) {
-          __syncthreads();
-          if (kc != resident) {
-            load_a_chunk(sm.As, Al, kc, M, N, n0);
-            resident = kc;
-          }
-          load_w_block(sm.Ws, Wop, 1, d, D, Mp, r, kc);
-          __syncthreads();
-          frag_from_f32(b, sm.As, sm.Gs, wc, lane);
-          mma_block(accD, sm.Ws, b, lane);
-        }
-      } else {
-        for (int mc = 0; mc < C; ++mc) {
-          // T = rows mc of W_d^T a
-          Acc accT;
-          zero(accT);
-          for (int kc = 0; kc < C; ++kc) {
-            __syncthreads();
-            if (kc != resident) {
-              load_a_chunk(sm.As, Al, kc, M, N, n0);
-              resident = kc;
-            }
-            load_w_block(sm.Ws, Wop, 1, d, D, Mp, mc, kc);
-            if (mc == 0 && kc == 0) load_g(sm.Gs, gq, N, n0);
-            __syncthreads();
-            frag_from_f32(b, sm.As, nullptr, wc, lane);
-            mma_block(accT, sm.Ws, b, lane);
-          }
-          // dt into the warp's own columns of Ds, then dA += W_d dt
-          store_dt(sm.Ds, accT, sm.Gs, wc, lane);
-          __syncwarp();
-          frag_from_bf16(b, sm.Ds, wc, lane);
-          __syncthreads();  // every warp is done with Ws
-          load_w_block(sm.Ws, Wop, 0, d, D, Mp, r, mc);
-          __syncthreads();
-          mma_block(accD, sm.Ws, b, lane);
+          __syncthreads();  // Ds no longer read
+          load_tile(sm.Ds, nullptr,
+                    r == 0 ? Rg + (((size_t)d * L + l) * Mp + kc * kC) * Np +
+                                 n0
+                           : nullptr,
+                    Np, Al, kc * kC, M, n0, N, sm.Gs);
+          w_acquire(sm, wc, W, M, C, tag(d, kc, r));
+          __syncthreads();  // Ds complete
+          warp_mma<true, true, kC>(accD, sm.W16, kLD, sm.Ds, kLD, wm, wn,
+                                   lane);
         }
       }
     }
 
-    // dA = (2 a g_ss + q_mu g_mn) + the quadratic-form terms
+    // dA = the terms above + 2 a g_ss (exact f32)
+    const bool pairs = (N & 1) == 0;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < kT; ++mt) {
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = r * kC + mt * 16 + g + (q >> 1) * 8;
-          const int n = n0 + wc + nt * 8 + t4 * 2 + (q & 1);
+        for (int h = 0; h < 2; ++h) {
+          const int m = r * kC + wm + mt * 16 + g + h * 8;
+          const int n = n0 + wn + nt * 8 + t4 * 2;
           if (m >= M || n >= N) continue;
-          float v = 0.0f;
-          if (gss != nullptr)
-            v = 2.0f * Al[(size_t)m * N + n] * gss[(size_t)l * N + n];
-          if (qmu != nullptr) {
-            float hh = 0.0f, hl = 0.0f, lh = 0.0f;
-            for (int d = 0; d < D; ++d) {
-              const float x = qmu[(size_t)m * D + d];
-              const float y = gmn[((size_t)l * D + d) * N + n];
-              const float xh = round_bf16(x), xl = round_bf16(x - xh);
-              const float yh = round_bf16(y), yl = round_bf16(y - yh);
-              hh = fmaf(xh, yh, hh);
-              hl = fmaf(xh, yl, hl);
-              lh = fmaf(xl, yh, lh);
+          float v0 = accD[mt][nt][2 * h], v1 = accD[mt][nt][2 * h + 1];
+          const size_t at = ((size_t)l * M + m) * N + n;
+          if (pairs) {  // n + 1 < N
+            if (gss != nullptr) {
+              const float2 a = *reinterpret_cast<const float2*>(Al +
+                                                                (size_t)m * N +
+                                                                n);
+              const float2 s = *reinterpret_cast<const float2*>(
+                  gss + (size_t)l * N + n);
+              v0 += 2.0f * a.x * s.x;
+              v1 += 2.0f * a.y * s.y;
             }
-            v += (hh + hl) + lh;
+            *reinterpret_cast<float2*>(dA + at) = make_float2(v0, v1);
+          } else {
+            for (int e = 0; e < 2 && n + e < N; ++e) {
+              float v = e == 0 ? v0 : v1;
+              if (gss != nullptr)
+                v += 2.0f * Al[(size_t)m * N + n + e] *
+                     gss[(size_t)l * N + n + e];
+              dA[at + e] = v;
+            }
           }
-          dA[((size_t)l * M + m) * N + n] = v + accD[mt][nt][q];
         }
-      }
-    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// ---- pass 2: dW as a split-K product, dq_mu's fixed-order sum --------------
+
+constexpr size_t kStageElems = 2 * (size_t)kC * kLDK;  // X and Y tiles
+constexpr size_t kSmem2 = kStages * kStageElems * sizeof(bf16);
+
+// cp.async of 128 rows x kBK columns of X and of Y (row stride ldg).
+__device__ __forceinline__ void issue_stage(bf16* st, const bf16* Xg,
+                                            const bf16* Yg, size_t ldg) {
+#pragma unroll
+  for (int i = 0; i < kC * kBK / 8 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx >> 3, c = (idx & 7) << 3;
+    cp_async16(st + r * kLDK + c, Xg + (size_t)r * ldg + c, 16);
+    cp_async16(st + kC * kLDK + r * kLDK + c, Yg + (size_t)r * ldg + c, 16);
   }
 }
 
-// ---- pass 2: partial s of the (i, j) block of dW_d -------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-dW_kernel(const float* __restrict__ A, const __nv_bfloat16* __restrict__ Wop,
-          const float* __restrict__ gqv, float* __restrict__ dW_part, int L,
-          int M, int D, int N, int cov) {
+__global__ void __launch_bounds__(kThreads, 2)
+pass2_kernel(const bf16* __restrict__ A16g, const bf16* __restrict__ Rg,
+             float* __restrict__ dW_part, float* __restrict__ dW,
+             const float* __restrict__ dq_part, float* __restrict__ dqmu,
+             unsigned* __restrict__ counters, int L, int M, int D, int Np,
+             int S, int n_red, int n_dq_parts, int cov) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw);
-  const int Mp = padded_m(M);
-  const int C = Mp / kC;
-  const int S = gridDim.x, s = blockIdx.x;
-  const int i = blockIdx.y / C, j = blockIdx.y % C;  // rows p, columns q
-  const int d = blockIdx.z;
+  __shared__ int last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int b = blockIdx.x;
+  if (b < n_red) {  // dq_mu: partials summed in tile order
+    const int MD = M * D;
+    const int e = b * kThreads + tid;
+    if (e < MD) {
+      float v = 0.0f;
+#pragma unroll 8
+      for (int p = 0; p < n_dq_parts; ++p) v += dq_part[(size_t)p * MD + e];
+      dqmu[e] = v;
+    }
+    return;
+  }
+  b -= n_red;
+  const int Mp = padded_m(M), C = Mp / kC;
+  const int s = b % S, rest = b / S;
+  const int blk = rest % (C * C), d = rest / (C * C);
+  const int bp = blk / C, bq = blk % C;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wc = warp * kWN;
-  const int ntiles = (N + kTN - 1) / kTN;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const int ktn = Np / kBK;
+  const long long kt_total = (long long)L * ktn;
+  const int t0 = (int)(kt_total * s / S), t1 = (int)(kt_total * (s + 1) / S);
+  const int nk = t1 - t0;
+  const size_t slab = (size_t)L * Mp * Np;
+  // dW_d[p, q] = sum_k X[p, k] Y[q, k]
+  const bf16* Xd = (cov ? Rg + d * slab : A16g) + (size_t)bp * kC * Np;
+  const bf16* Yd = (cov ? A16g : Rg + d * slab) + (size_t)bq * kC * Np;
+  bf16* st0 = reinterpret_cast<bf16*>(smem_raw);
 
-  Acc acc;  // dW_d[i rows p, j columns q]: the warp owns 16 columns q
+  auto issue = [&](int i) {
+    const int t = t0 + i, l = t / ktn, k0 = (t - l * ktn) * kBK;
+    const size_t off = (size_t)l * Mp * Np + k0;
+    issue_stage(st0 + (i % kStages) * kStageElems, Xd + off, Yd + off, Np);
+  };
+
+  Acc acc;
   zero(acc);
-  Frag b;
-  for (int t = s; t < L * ntiles; t += S) {
-    const int l = t / ntiles, n0 = (t % ntiles) * kTN;
-    const float* Al = A + (size_t)l * M * N;
-    const float* gq = gqv + ((size_t)l * D + d) * N;
-    int resident = -1;
-    if (cov) {
-      // dW_d[p, q] += sum_n ga[p, n] a[q, n]: B from chunk j, A from i
-      __syncthreads();
-      load_a_chunk(sm.As, Al, j, M, N, n0);
-      load_g(sm.Gs, gq, N, n0);
-      resident = j;
-      __syncthreads();
-      // B[k = n][col = q] = bf16(a[q, n]): rows q of As, consecutive n
 #pragma unroll
-      for (int kt = 0; kt < kT; ++kt)
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nk) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i is in; stage (i - 1) % kStages is free
+    if (i + kStages - 1 < nk) issue(i + kStages - 1);
+    cp_async_commit();
+    const bf16* st = st0 + (i % kStages) * kStageElems;
+    warp_mma<false, false, kBK>(acc, st, kLDK, st + kC * kLDK, kLDK, wm, wn,
+                                lane);
+  }
+  cp_async_wait<0>();
+
+  const size_t part_stride = (size_t)D * Mp * Mp;
+  float* part = dW_part + (size_t)s * part_stride +
+                ((size_t)d * Mp + bp * kC) * Mp + bq * kC;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const float* x = sm.As + (wc + nt * 8 + g) * kLDA + kt * 16 + t4 * 2;
-          b[kt][nt][0] = pack_bf16(x[0], x[1]);
-          b[kt][nt][1] = pack_bf16(x[8], x[9]);
-        }
-      if (i != resident) {
-        __syncthreads();
-        load_a_chunk(sm.As, Al, i, M, N, n0);
-        __syncthreads();
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wm + mt * 16 + g + h * 8;
+        const int q = wn + nt * 8 + t4 * 2;
+        *reinterpret_cast<float2*>(part + (size_t)p * Mp + q) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
-      mma_block_f32(acc, sm.As, sm.Gs, b, lane);
-    } else {
-      // T = rows j of W_d^T a, dt = bf16(2 g T) into Ds [q][n]
-      Acc accT;
-      zero(accT);
-      for (int kc = 0; kc < C; ++kc) {
-        __syncthreads();
-        if (kc != resident) {
-          load_a_chunk(sm.As, Al, kc, M, N, n0);
-          resident = kc;
-        }
-        load_w_block(sm.Ws, Wop, 1, d, D, Mp, j, kc);
-        if (kc == 0) load_g(sm.Gs, gq, N, n0);
-        __syncthreads();
-        frag_from_f32(b, sm.As, nullptr, wc, lane);
-        mma_block(accT, sm.Ws, b, lane);
-      }
-      store_dt(sm.Ds, accT, sm.Gs, wc, lane);
-      __syncthreads();  // Ds is read across warps below
-      if (i != resident) {
-        load_a_chunk(sm.As, Al, i, M, N, n0);
-        __syncthreads();
-      }
-      // dW_d[p, q] += sum_n a[p, n] dt[q, n]: B[k = n][col = q] = Ds[q][n]
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[(d * C + bp) * C + bq], 1u) ==
+                       (unsigned)(S - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block: the S partials of this block of dW_d, in slice order
+  const float* base = dW_part + ((size_t)d * Mp + bp * kC) * Mp + bq * kC;
+  constexpr int kPer = kC * kC / 4 / kThreads;  // float4 per thread
+  constexpr int kGroup = 8;
+#pragma unroll 1
+  for (int i0 = 0; i0 < kPer; i0 += kGroup) {
+    float4 v[kGroup];
 #pragma unroll
-      for (int kt = 0; kt < kT; ++kt)
+    for (int j = 0; j < kGroup; ++j) v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int sl = 0; sl < S; ++sl) {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const __nv_bfloat16* x =
-              sm.Ds + (wc + nt * 8 + g) * kLDW + kt * 16 + t4 * 2;
-          b[kt][nt][0] = *reinterpret_cast<const uint32_t*>(x);
-          b[kt][nt][1] = *reinterpret_cast<const uint32_t*>(x + 8);
-        }
-      mma_block_f32(acc, sm.As, nullptr, b, lane);
+      for (int j = 0; j < kGroup; ++j) {
+        const int pos = tid + (i0 + j) * kThreads;
+        const int row = pos >> 5, c4 = (pos & 31) << 2;
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            base + sl * part_stride + (size_t)row * Mp + c4));
+        v[j].x += x.x, v[j].y += x.y, v[j].z += x.z, v[j].w += x.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int pos = tid + (i0 + j) * kThreads;
+      const int p = bp * kC + (pos >> 5), q = bq * kC + ((pos & 31) << 2);
+      const float e[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      if (p < M)
+        for (int k = 0; k < 4 && q + k < M; ++k)
+          dW[((size_t)d * M + p) * M + q + k] = e[k];
     }
   }
-
-  float* out = dW_part + (((size_t)s * D + d) * Mp + (size_t)i * kC) * Mp +
-               (size_t)j * kC;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < kT; ++mt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = mt * 16 + g + (q >> 1) * 8;
-        const int c = wc + nt * 8 + t4 * 2 + (q & 1);
-        out[(size_t)p * Mp + c] = acc[mt][nt][q];
-      }
 }
 
-// ---- pass 3: fixed-order sums of the partials ------------------------------
-__global__ void reduce_dW_kernel(const float* __restrict__ part, int S,
-                                 int D, int M, float* __restrict__ dW) {
-  const int Mp = padded_m(M);
-  const size_t total = (size_t)D * M * M;
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
-    const int q = (int)(idx % M);
-    const int p = (int)((idx / M) % M);
-    const int d = (int)(idx / ((size_t)M * M));
-    float v = 0.0f;
-    for (int s = 0; s < S; ++s)
-      v += part[(((size_t)s * D + d) * Mp + p) * Mp + q];
-    dW[idx] = v;
-  }
-}
-
-__global__ void reduce_dqmu_kernel(const float* __restrict__ part, int nblk,
-                                   int MD, float* __restrict__ dqmu) {
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < MD;
-       idx += gridDim.x * blockDim.x) {
-    float v = 0.0f;
-    for (int b = 0; b < nblk; ++b) v += part[(size_t)b * MD + idx];
-    dqmu[idx] = v;
-  }
-}
-
-int n_slices(int L, int M, int N, int D) {
-  const int C = padded_m(M) / kC;
-  const long long tiles = (long long)L * ((N + kTN - 1) / kTN);
-  const long long want = (kWaveBlocks + (long long)D * C * C - 1) /
-                         ((long long)D * C * C);
-  return (int)std::max(1LL, std::min(tiles, want));
-}
+// ---- scratch ---------------------------------------------------------------
 
 size_t align256(size_t x) { return (x + 255) / 256 * 256; }
 
-struct Scratch {
-  size_t wop, dw, dq;  // byte sizes of the three parts
+struct Layout {
+  int Mp, C, tiles, Np, S;
+  size_t a16, r, dw, dq, cnt;  // byte sizes of the five parts
 };
 
-Scratch scratch_sizes(int L, int M, int N, int D, int with_mean) {
-  const size_t Mp = padded_m(M);
-  const size_t tiles = (size_t)L * ((N + kTN - 1) / kTN);
-  Scratch s;
-  s.wop = align256(2 * (size_t)D * Mp * Mp * sizeof(__nv_bfloat16));
-  s.dw = align256((size_t)n_slices(L, M, N, D) * D * Mp * Mp * sizeof(float));
-  s.dq = with_mean ? align256(tiles * M * D * sizeof(float)) : 0;
+Layout layout(int L, int M, int N, int D, int with_mean) {
+  Layout s;
+  s.Mp = padded_m(M);
+  s.C = s.Mp / kC;
+  s.tiles = (N + kTN - 1) / kTN;
+  s.Np = s.tiles * kTN;
+  const long long kt_total = (long long)L * (s.Np / kBK);
+  // at least 16 k-tiles per slice: the last block's sum of the S partials
+  // stays short against the slices' own work
+  s.S = (int)std::max(1LL, std::min<long long>(kMaxSlices,
+                                               (kt_total + 15) / 16));
+  const size_t slab = (size_t)L * s.Mp * s.Np * sizeof(bf16);
+  s.a16 = align256(slab);
+  s.r = align256((size_t)D * slab);
+  s.dw = align256((size_t)s.S * D * s.Mp * s.Mp * sizeof(float));
+  s.dq = with_mean ? align256((size_t)L * s.tiles * M * D * sizeof(float))
+                   : 0;
+  s.cnt = align256((size_t)D * s.C * s.C * sizeof(unsigned));
   return s;
 }
 
@@ -596,16 +757,17 @@ extern "C" {
 // Bytes of the scratch `epilogue_bwd_launch` takes.
 long long epilogue_bwd_scratch_bytes(int L, int M, int N, int D,
                                      int with_mean) {
-  const Scratch s = scratch_sizes(L, M, N, D, with_mean);
-  return (long long)(s.wop + s.dw + s.dq);
+  const Layout s = layout(L, M, N, D, with_mean);
+  return (long long)(s.a16 + s.r + s.dw + s.dq + s.cnt);
 }
 
 // A [L, M, N], W [D, M, M], q_mu [M, D] (or null), g_qv [L, D, N],
 // g_ss [L, N] (or null), g_mn [L, D, N] (null iff q_mu is null) ->
 // dA [L, M, N], dW [D, M, M], dq_mu [M, D] (null iff q_mu is null).
 // scratch: epilogue_bwd_scratch_bytes(L, M, N, D, q_mu != null) bytes,
-// 256-byte aligned. All contiguous f32; any M, D, N. Returns the CUDA error
-// code of the launches (0 on success).
+// 256-byte aligned. All contiguous f32; any M, D, N. Two launches (one
+// more per 65535 of L). Returns the CUDA error code of the launches (0 on
+// success).
 int epilogue_bwd_launch(const float* A, const float* W, const float* qmu,
                         const float* gqv, const float* gss, const float* gmn,
                         float* dA, float* dW, float* dqmu, void* scratch,
@@ -619,53 +781,41 @@ int epilogue_bwd_launch(const float* A, const float* W, const float* qmu,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const Scratch sz = scratch_sizes(L, M, N, D, mean);
+  const Layout s = layout(L, M, N, D, mean);
   unsigned char* base = reinterpret_cast<unsigned char*>(scratch);
-  __nv_bfloat16* Wop = reinterpret_cast<__nv_bfloat16*>(base);
-  float* dW_part = reinterpret_cast<float*>(base + sz.wop);
-  float* dq_part = reinterpret_cast<float*>(base + sz.wop + sz.dw);
-  const int Mp = padded_m(M), C = Mp / kC;
-  const int tiles = (N + kTN - 1) / kTN;
+  bf16* A16g = reinterpret_cast<bf16*>(base);
+  bf16* Rg = reinterpret_cast<bf16*>(base + s.a16);
+  float* dW_part = reinterpret_cast<float*>(base + s.a16 + s.r);
+  float* dq_part = reinterpret_cast<float*>(base + s.a16 + s.r + s.dw);
+  unsigned* counters =
+      reinterpret_cast<unsigned*>(base + s.a16 + s.r + s.dw + s.dq);
+  const int n_counters = D * s.C * s.C;
 
-  const long long wtotal = 2LL * D * Mp * Mp;
-  prep_w_kernel<<<(int)std::min<long long>((wtotal + kThreads - 1) / kThreads,
-                                           1 << 16),
-                  kThreads, 0, st>>>(W, Wop, D, M);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(dA_kernel,
+  err = cudaFuncSetAttribute(pass1_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmem);
+                             (int)kSmem1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dW_kernel,
+  err = cudaFuncSetAttribute(pass2_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmem);
+                             (int)kSmem2);
   if (err != cudaSuccess) return (int)err;
 
   // pass 1; grid.y is at most 65535: slices of L
   for (int l0 = 0; l0 < L; l0 += 65535) {
-    dim3 grid(tiles, std::min(L - l0, 65535));
-    dA_kernel<<<grid, kThreads, kSmem, st>>>(A, Wop, qmu, gqv, gss, gmn, dA,
-                                             dq_part, l0, M, D, N, cov);
+    dim3 grid(s.tiles, std::min(L - l0, 65535));
+    pass1_kernel<<<grid, kThreads, kSmem1, st>>>(
+        A, W, qmu, gqv, gss, gmn, dA, A16g, Rg, dq_part, counters, n_counters,
+        l0, L, M, D, N, cov);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  // pass 2
-  const int S = n_slices(L, M, N, D);
-  dW_kernel<<<dim3(S, C * C, D), kThreads, kSmem, st>>>(A, Wop, gqv, dW_part,
-                                                        L, M, D, N, cov);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // pass 3
-  const long long wout = (long long)D * M * M;
-  reduce_dW_kernel<<<(int)std::min<long long>((wout + kThreads - 1) / kThreads,
-                                              1 << 16),
-                     kThreads, 0, st>>>(dW_part, S, D, M, dW);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (mean) {
-    reduce_dqmu_kernel<<<(M * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        dq_part, L * tiles, M * D, dqmu);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  // pass 2: the dq_mu sums first, then S slices of every (d, block of dW)
+  const int n_red = mean ? (M * D + kThreads - 1) / kThreads : 0;
+  const long long blocks = n_red + (long long)s.S * D * s.C * s.C;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  pass2_kernel<<<(int)blocks, kThreads, kSmem2, st>>>(
+      A16g, Rg, dW_part, dW, dq_part, dqmu, counters, L, M, D, s.Np, s.S,
+      n_red, L * s.tiles, cov);
+  return (int)cudaGetLastError();
 }
 
 const char* epilogue_bwd_error_string(int err) {

@@ -46,12 +46,15 @@ def _spd(gen, g, m):
     return A @ A.transpose(-1, -2) + m * torch.eye(m, device="cuda")
 
 
-# 200 and 264 work in device memory (past 168 the working set leaves
-# shared memory)
-@pytest.mark.parametrize("m", [128, 100, 20, 1, 200, 264])
-def test_chol_inv_kernel_matches_plain(gen, m):
+# the blocked kernel pads M to a multiple of its panel width (17, 127, 129
+# are not); 200 and 264 work in device memory (past 160 the working set
+# leaves shared memory); T=2 is natgrad's ladder
+@pytest.mark.parametrize("m,tries", [(128, 4), (100, 4), (20, 4), (1, 4),
+                                     (200, 4), (264, 4), (17, 4), (127, 4),
+                                     (129, 4), (160, 4), (161, 4), (128, 2)])
+def test_chol_inv_kernel_matches_plain(gen, m, tries):
     K = _spd(gen, 3, m)
-    jit = linalg._jitter_ladder(1e-6, 4, K.dtype, K.device)
+    jit = linalg._jitter_ladder(1e-6, tries, K.dtype, K.device)
     L, Li = chol.chol_inv(K, jit)
     Lp, Lip = chol.chol_inv_plain(K, jit)
     torch.testing.assert_close(L, Lp, rtol=0,
@@ -71,6 +74,25 @@ def test_chol_inv_kernel_rejects_failed_pivots_per_matrix(gen):
     assert linalg._chol_ok(L[0]).tolist() == [True, False, True]
     Lok, _ = chol.chol_inv(K[[0, 2]], jit)
     torch.testing.assert_close(L[0, [0, 2]], Lok[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [128, 45])
+def test_chol_inv_failed_pivot_stays_in_its_level(gen, m):
+    """A pivot that fails in one panel of one (matrix, level) leaves every
+    other matrix and level of the launch bitwise as it is alone."""
+    K = _spd(gen, 3, m)
+    K[1] -= 3.0 * m * torch.eye(m, device="cuda")  # indefinite at low jitter
+    jit = torch.tensor([0.0, 1e-3, 10.0 * m], device="cuda")
+    L, Li = chol.chol_inv(K, jit)
+    ok = linalg._chol_ok(L)
+    assert ok[:, 0].all() and ok[:, 2].all()
+    assert ok[:2, 1].tolist() == [False, False] and bool(ok[2, 1])
+    for g in (0, 2):
+        Lg, Lig = chol.chol_inv(K[g:g + 1], jit)
+        assert torch.equal(L[:, g], Lg[:, 0]) and torch.equal(Li[:, g],
+                                                              Lig[:, 0])
+    L2, Li2 = chol.chol_inv(K[1:2], jit[2:])
+    assert torch.equal(L[2, 1], L2[0, 0]) and torch.equal(Li[2, 1], Li2[0, 0])
 
 
 def test_rank_deficient_gram_climbs_the_ladder(gen):
@@ -224,11 +246,39 @@ def test_epilogue_bwd_kernel_matches_plain(gen, m, form, d, cov):
                                    atol=1e-4 * float(r.abs().max()))
 
 
+def _pad_n(t, n):
+    """t with its last axis zero-padded to n (the column axis)."""
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+
+
+# N=999 is odd and not a multiple of 4: the kernel's scalar load paths. For
+# an odd leading dimension cuBLAS takes another kernel, whose order of sums
+# moves some of T's elements across a bf16 rounding boundary against the
+# kernel's; the reference is the plain version of the inputs zero-padded to
+# a multiple of 8 columns (zero columns add nothing to any sum)
+@pytest.mark.parametrize("n", [1000, 999])
+@pytest.mark.parametrize("form,d,cov", [("epi", 8, False), ("epi", 1, True),
+                                        ("ps", 8, False), ("qvar", 1, True)])
+def test_epilogue_bwd_kernel_ragged_n(gen, n, form, d, cov):
+    args = _bwd_inputs(gen, 2, 128, n, d, cov)
+    got = _bwd_call(form, *args, cov, plain=False)
+    n8 = (n + 7) // 8 * 8
+    A, W, q_mu, g_qv, g_ss, g_mn = args
+    ref = _bwd_call(form, _pad_n(A, n8), W, q_mu, _pad_n(g_qv, n8),
+                    _pad_n(g_ss, n8), _pad_n(g_mn, n8), cov, plain=True)
+    ref = (ref[0][..., :n],) + tuple(ref[1:])
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("n", [512, 8192])
 @pytest.mark.parametrize("cov", [False, True])
-def test_epilogue_bwd_kernel_is_deterministic(gen, cov):
-    """dW and dq_mu sum over the whole grid without atomics: two launches
-    on the same inputs are bitwise equal."""
-    args = _bwd_inputs(gen, 20, 128, 512, 8, cov)
+def test_epilogue_bwd_kernel_is_deterministic(gen, cov, n):
+    """dW and dq_mu sum over the whole grid without float atomics: two
+    launches on the same inputs are bitwise equal."""
+    args = _bwd_inputs(gen, 20, 128, n, 8, cov)
     a = qvar.epi_bwd_fused(*args, cov)
     b = qvar.epi_bwd_fused(*args, cov)
     for x, y in zip(a, b):
