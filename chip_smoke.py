@@ -18,12 +18,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    natgrad precision P (G=1, two levels), plus its jitter ladder on a
    rank-deficient gram, with an empty kernel's time beside K1's; K2
    (epilogue with mean, without mean, q-variance only) at the serving
-   shape (M=128, B=8192, S=100); K3 (its backward, in the same three
+   shape (M=128, B=8192, S=100), and with mean at the training step's
+   shapes A [20,128,512] and [20,128,8192] (root D=8, cov D=1); K3 (its backward, in the same three
    forms) at the training shapes A [20,128,512] and [20,128,8192], at
    M=100, and two launches bitwise equal at both shapes; K4
    (``serve_cond``, with and without the sample) and K5
    (``conditional``, fused and sample, with the residuals Kxz and A) at
-   the serving and training shapes, a ragged N, M=100 and M=200, K5's
+   the serving and training shapes (K5 'fused' with residuals at the
+   Adam-only step's [10240, 8], D=1), a ragged N, M=100 and M=200, K5's
    sample element by element against the plain Philox stream, the
    recovered noise over 8.4M draws (mean, variance, share beyond 3 within
    5 standard errors), one seed bitwise repeatable and two seeds apart;
@@ -99,6 +101,30 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time of fn per call, its calls back to back with no gap: a
+    spin kernel (``torch.cuda._sleep``) queued ahead of the start event
+    lasts longer than the host's enqueue of all `iters` calls, so that the
+    events time the device's work alone. ``time_ms`` times the host instead
+    where enqueueing a call takes longer than its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # enqueue and run: an upper bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (1.5 * host_s + 1e-3)))  # cycles, <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -366,36 +392,56 @@ def _entry(name, source, replaces, cases, tol, library_ms=None):
             "library_ms": library_ms, "cases": cases}
 
 
+def _epi_case(torch, qvar, gen, label, Lx, N, D, cov, form) -> dict:
+    """K2 against its plain version on A [Lx, M, N], W [D, M, M]: errors,
+    times and the bound on the same inputs."""
+    A, W, q_mu = _epi_inputs(torch, gen, Lx, D, N, cov)
+    errs, rels = _epi_check(torch, qvar, label, A, W, q_mu, cov, form)
+    iters = 10 if Lx * N >= 1 << 18 else 50
+    ms = time_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
+                                          False), iters)
+    plain_ms = time_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
+                                                True), 3, 1)
+    dev_ms = device_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
+                                                False))
+    mean, ssq = form == "epi", form != "qvar"
+    out_floats = Lx * D * N * (2 if mean else 1) + (Lx * N if ssq else 0)
+    in_floats = Lx * M * N + D * M * M + (M * D if mean else 0)
+    b_ms, b_by = bound(
+        bytes_moved=4 * (in_floats + out_floats),
+        bf16_ops=2 * Lx * D * M * M * N + (6 * Lx * D * M * N if mean
+                                           else 0),
+        f32_ops=2 * Lx * D * M * N + (2 * Lx * M * N if ssq else 0))
+    del A, W, q_mu
+    torch.cuda.empty_cache()
+    return {"case": label, "shape": f"A [{Lx},{M},{N}], W [{D},{M},{M}]",
+            "max_abs_err": max(errs.values()),
+            "max_rel_err": max(rels.values()), "errs": errs, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+EPI_TRAIN_CASES = [
+    # (label, D, cov): the training step's two K2 launches
+    ("training inner layer: root D=8, mean+sumsq", 8, False),
+    ("training final layer (natgrad): cov D=1, mean+sumsq", 1, True),
+]
+
+
 def epilogue_phase(torch, hopper, gen) -> list:
     """K2 against its plain version at the serving shape S=100, B=8192,
-    M=128 (errors and times on the same inputs), and on a ragged N; one
+    M=128 (errors and times on the same inputs), at the training step's
+    shapes A [20,128,512] and [20,128,8192], and on a ragged N; one
     kernels-line row per variant."""
     qvar = hopper.qvar
     cases = {"epi": [], "ps": [], "qvar": []}
     for label, D, cov, form in EPI_CASES:
-        A, W, q_mu = _epi_inputs(torch, gen, S_SERVE, D, B_SERVE, cov)
-        errs, rels = _epi_check(torch, qvar, label, A, W, q_mu, cov, form)
-        ms = time_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
-                                              False), 10)
-        plain_ms = time_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov,
-                                                    form, True), 3, 1)
-        Lx, N = S_SERVE, B_SERVE
-        mean, ssq = form == "epi", form != "qvar"
-        out_floats = Lx * D * N * (2 if mean else 1) + (Lx * N if ssq else 0)
-        in_floats = Lx * M * N + D * M * M + (M * D if mean else 0)
-        b_ms, b_by = bound(
-            bytes_moved=4 * (in_floats + out_floats),
-            bf16_ops=2 * Lx * D * M * M * N + (6 * Lx * D * M * N if mean
-                                               else 0),
-            f32_ops=2 * Lx * D * M * N + (2 * Lx * M * N if ssq else 0))
-        cases[form].append({"case": label,
-                            "shape": f"A [{Lx},{M},{N}], W [{D},{M},{M}]",
-                            "max_abs_err": max(errs.values()),
-                            "max_rel_err": max(rels.values()), "errs": errs,
-                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                            "bound_by": b_by})
-        del A, W, q_mu
-        torch.cuda.empty_cache()
+        cases[form].append(_epi_case(torch, qvar, gen, label, S_SERVE,
+                                     B_SERVE, D, cov, form))
+    for n in (B_TRAIN, B_BIG):
+        for label, D, cov in EPI_TRAIN_CASES:
+            cases["epi"].append(_epi_case(torch, qvar, gen, label, L_TRAIN,
+                                          n, D, cov, "epi"))
     A, W, q_mu = _epi_inputs(torch, gen, 2, 8, 1000, False)
     ragged, _ = _epi_check(torch, qvar, "ragged N=1000, root D=8", A, W,
                            q_mu, False, "epi")
@@ -543,6 +589,7 @@ FUSED_CASES = [
     ("serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X, "inner"),
     ("serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "final"),
     ("training inner layer", 20 * 512, D_X + 1, M, D_X, "train"),
+    ("training final layer (Adam only)", 20 * 512, D_X, M, 1, "train_final"),
     ("ragged N=1000", 1000, D_X + 1, M, D_X, None),
     ("M=100", 1000, D_X + 1, 100, D_X, None),
     ("M=200", 1000, D_X + 1, 200, D_X, None),
@@ -644,6 +691,8 @@ def fused_phase(torch, hopper, gen) -> tuple:
                     "max_rel_err": max(rels.values())}
             if (layer == "inner") == with_eps and layer in ("inner", "final"):
                 case["ms"] = time_ms(torch, lambda: k4_call(with_eps), 10)
+                case["device_ms"] = device_ms(torch,
+                                              lambda: k4_call(with_eps))
                 case["plain_ms"] = time_ms(torch, lambda: k4_call(with_eps,
                                                                   True), 2, 1)
                 case["bound_ms"], case["bound_by"] = _k4_bound(n, d_in, m, d,
@@ -662,11 +711,14 @@ def fused_phase(torch, hopper, gen) -> tuple:
                     "rels": rels, "max_abs_err": max(errs.values()),
                     "max_rel_err": max(rels.values())}
             is_main = (layer == "final") if s is None else (layer == "inner")
-            if is_main or (layer == "train" and s is not None):
+            is_train = (layer == "train_final") if s is None else (
+                layer == "train")
+            if is_main or is_train:
                 # prediction runs without residuals; training writes them
-                res = layer == "train"
+                res = is_train
                 case["residuals"] = res
                 case["ms"] = time_ms(torch, lambda: k5_call(s, res), 5)
+                case["device_ms"] = device_ms(torch, lambda: k5_call(s, res))
                 case["plain_ms"] = time_ms(torch, lambda: k5_call(s, res,
                                                                   True), 2, 1)
                 case["bound_ms"], case["bound_by"] = _k5_bound(
@@ -1236,16 +1288,34 @@ def _pallas_train(torch, train, build, config, params, X, Y, tc, idx) -> dict:
 
 
 AB_ORDER = ("parent", "change", "change", "parent")
+AB_COND_CASES = [
+    # (label, N, d_in, M, D, kernel, sample, residuals, iterations)
+    ("'sample', serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X,
+     "K4", True, False, 10),
+    ("'infer', serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "K4",
+     False, False, 10),
+    ("'sample', serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X,
+     "K5", True, False, 5),
+    ("'fused', serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "K5",
+     False, False, 5),
+    ("'sample' with residuals, training", 20 * 512, D_X + 1, M, D_X, "K5",
+     True, True, 50),
+    ("'fused' with residuals, Adam-only training", 20 * 512, D_X, M, 1,
+     "K5", False, True, 50),
+]
 
 
 def _parent_libs(hopper, build, parent: str) -> dict:
-    """K1's and K3's libraries of the tree at `parent`, each built by its
-    own nvcc from that tree's csrc/ into this tree's build directory and
-    bound with this tree's signatures (the C interfaces are the same)."""
+    """K1's, K3's, K4's and K5's libraries of the tree at `parent`, each
+    built by its own nvcc from that tree's csrc/ into this tree's build
+    directory and bound with this tree's signatures (the C interfaces are
+    the same)."""
     import ctypes
 
     sigs = {"chol_inv": hopper.chol.SIGNATURES,
-            "epilogue_bwd": hopper.qvar.BWD_SIGNATURES}
+            "epilogue_bwd": hopper.qvar.BWD_SIGNATURES,
+            "serve_cond": hopper.serve_cond.SIGNATURES,
+            "conditional": hopper.conditional.SIGNATURES}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in sigs:
@@ -1270,16 +1340,21 @@ def _parent_libs(hopper, build, parent: str) -> dict:
 
 def ab_kernels(torch, hopper, linalg, build, parent: str, model,
                gen) -> dict:
-    """K1 (served Kuu, natgrad P) and K3 (every form at B=512 and 8192) of
-    the tree at `parent` and of this one, on the same inputs, timed in
-    turns (parent, change, change, parent). The wrappers load a library
-    through ``build.library``, which returns the one loaded under the
-    kernel's name: each turn puts its tree's libraries there."""
+    """K1 (served Kuu, natgrad P), K3 (every form at B=512 and 8192), K4
+    and K5 (at the serving and training shapes) of the tree at `parent`
+    and of this one, on the same inputs, timed in turns (parent, change,
+    change, parent). The wrappers load a library through
+    ``build.library``, which returns the one loaded under the kernel's
+    name: each turn puts its tree's libraries there."""
     chol, qvar = hopper.chol, hopper.qvar
+    k4, k5 = hopper.serve_cond, hopper.conditional
     libs = {"parent": _parent_libs(hopper, build, parent),
             "change": {"chol_inv": chol._lib(),
                        "epilogue_bwd": build.library(qvar.BWD_NAME,
-                                                     qvar.BWD_SIGNATURES)}}
+                                                     qvar.BWD_SIGNATURES),
+                       "serve_cond": build.library(k4.NAME, k4.SIGNATURES),
+                       "conditional": build.library(k5.NAME,
+                                                    k5.SIGNATURES)}}
     config, params = model[2], model[3]
     Kuu = served_kuu(torch, config, params)
     jit = linalg._jitter_ladder(config.jitter, config.jitter_tries,
@@ -1296,13 +1371,27 @@ def ab_kernels(torch, hopper, linalg, build, parent: str, model,
             cases.append((f"K3 {label}, A [{L_TRAIN},{M},{n}]",
                           lambda f=form, a=args, c=cov: _bwd_call(
                               qvar, f, *a, c, plain=False), 20))
+    seed = torch.tensor(2 ** 40 + 12345, dtype=torch.int64, device="cuda")
+    for label, n, d_in, m, d, kern, sample, res, iters in AB_COND_CASES:
+        args = _cond_inputs(torch, gen, n, m, d_in, d)
+        if kern == "K4":
+            eps = (torch.randn((n, d), generator=gen, device="cuda")
+                   if sample else None)
+            fn = (lambda a=args, e=eps: k4.fused_conditional_infer(*a, e))
+        else:
+            fn = (lambda a=args, s=seed if sample else None, r=res:
+                  k5.fused_forward(*a, s, residuals=r))
+        cases.append((f"{kern} {label}, xs [{n},{d_in}], M={m}, D={d}", fn,
+                      iters))
     out = {}
     for label, fn, iters in cases:
         times = {"parent": [], "change": []}
+        dev = {"parent": [], "change": []}
         for tree in AB_ORDER:
             build._libs.update(libs[tree])
             times[tree].append(time_ms(torch, fn, iters))
-        out[label] = times
+            dev[tree].append(device_ms(torch, fn))
+        out[label] = dict(times, device_ms=dev)
     del cases
     # K3 at M=100 (epi, root D=8, A [20,100,512]) on three seeds: each
     # tree's dA, dW, dq_mu against the plain version and against the
@@ -1334,6 +1423,9 @@ def _ab_summary(tree: str, profiled: bool, rec: dict) -> dict:
          "steps_per_s_b512": tr["steps_per_s_b512"],
          "steps_per_s_b8192": tr["steps_per_s_b8192"],
          "serve_default_points_per_s": ps["serve_pallas"]["points_per_s"],
+         "serve_use_pallas_points_per_s": ps["use_pallas"]["points_per_s"],
+         "train_use_pallas_steps_per_s": {
+             k: v["steps_per_s_b512"] for k, v in tr["use_pallas"].items()},
          "serve_k2_route_points_per_s": rec["slice"]["points_per_s"],
          "kernels_ms": {k["name"]: k["ms"] for k in rec["kernels"]}}
     if profiled:
@@ -1343,10 +1435,13 @@ def _ab_summary(tree: str, profiled: bool, rec: dict) -> dict:
                                         "wall_ms_per_step", "idle_share",
                                         "kernel_launches_per_step")}
             s[key]["kernels"] = p["kernels_ms_per_step"][:12]
-        sp = ps["serve_pallas"]["profile"]
-        s["profile_serve_default"] = {
-            "device_ms_per_request": sp["device_ms_per_request"],
-            "kernels": sp["kernels_ms_per_request"][:8]}
+        for route, key in (("serve_pallas", "profile_serve_default"),
+                           ("use_pallas", "profile_serve_use_pallas")):
+            sp = ps[route]["profile"]
+            s[key] = {k: sp[k] for k in ("device_ms_per_request",
+                                         "wall_ms_per_request",
+                                         "idle_share")}
+            s[key]["kernels"] = sp["kernels_ms_per_request"][:8]
     return s
 
 
@@ -1383,7 +1478,8 @@ def main() -> int:
                     "record device time by kernel and the idle share")
     ap.add_argument("--ab", metavar="PARENT",
                     help="instead of the smoke run, time this tree against "
-                    "the checkout at PARENT on one card: K1 and K3 in turns "
+                    "the checkout at PARENT on one card: K1, K3, K4 and K5 "
+                    "in turns "
                     "on the same inputs, then both trees' chip_smoke.py in "
                     "turns; needs --out (DIR/ab.json)")
     opts = ap.parse_args()

@@ -300,7 +300,7 @@ def test_training_functions_launch_k2_and_k3(gen):
                                         "epilogue_bwd:epi": 1}
 
 
-def _cond_inputs(gen, n, m, d_in, d):
+def _cond_inputs(gen, n, m, d_in, d, dense_lq=False):
     xs = 0.5 * torch.randn((n, d_in), generator=gen, device="cuda")
     zs = 0.5 * torch.randn((m, d_in), generator=gen, device="cuda")
     var = torch.tensor(1.7, device="cuda")
@@ -309,8 +309,8 @@ def _cond_inputs(gen, n, m, d_in, d):
                                                        dtype=torch.float64))
     linv = (3.0 * torch.linalg.inv(Lk)).float()
     q_mu = torch.randn((m, d), generator=gen, device="cuda")
-    lq = 0.3 * torch.tril(torch.randn((d, m, m), generator=gen, device="cuda"))
-    return xs, zs, var, linv, q_mu, lq
+    lq = 0.3 * torch.randn((d, m, m), generator=gen, device="cuda")
+    return xs, zs, var, linv, q_mu, lq if dense_lq else torch.tril(lq)
 
 
 def _rel_close(got, ref, rel):
@@ -319,8 +319,10 @@ def _rel_close(got, ref, rel):
                                atol=rel * float(ref.abs().max()))
 
 
-# any M: 20 and 100 pad inside the kernels, 200 takes two column chunks
-@pytest.mark.parametrize("m", [20, 100, 128, 200])
+# any M: 20 and 100 pad inside the kernels; past 128 K4 takes its wide
+# kernel and K5 its 32-row tiles, 200 and 264 with two and three column
+# chunks
+@pytest.mark.parametrize("m", [20, 100, 128, 200, 264])
 @pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1)])
 @pytest.mark.parametrize("with_eps", [False, True])
 def test_serve_cond_kernel_matches_plain(gen, m, d_in, d, with_eps):
@@ -336,7 +338,7 @@ def test_serve_cond_kernel_matches_plain(gen, m, d_in, d, with_eps):
         _rel_close(g, r, tol)
 
 
-@pytest.mark.parametrize("m", [20, 100, 128, 200])
+@pytest.mark.parametrize("m", [20, 100, 128, 200, 264])
 @pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1)])
 @pytest.mark.parametrize("seeded", [False, True])
 def test_conditional_kernel_matches_plain(gen, m, d_in, d, seeded):
@@ -353,6 +355,47 @@ def test_conditional_kernel_matches_plain(gen, m, d_in, d, seeded):
         assert (g is None) == (r is None)
         if g is not None:
             _rel_close(g, r, 1e-5)
+
+
+# the edges of K4's and K5's tiling: N = 1, 63, 65 (one ragged tile of 128
+# rows); N = 10,240 (K5 splits the q-variance's d over 3 groups of blocks);
+# d_in = 20 (two k16 steps of the gram); M = 264; and a dense Lq, which
+# both kernels must read as tril(Lq), as the plain versions do: the tile
+# skip never reads above the diagonal
+COND_EDGES = [(1, 9, 128, 8, False), (63, 9, 128, 8, False),
+              (65, 9, 128, 8, False), (10240, 9, 128, 8, False),
+              (1000, 20, 128, 8, False), (1000, 20, 264, 1, False),
+              (1000, 9, 128, 8, True), (1000, 9, 100, 1, True),
+              (1000, 9, 200, 8, True)]
+
+
+@pytest.mark.parametrize("n,d_in,m,d,dense_lq", COND_EDGES)
+def test_serve_cond_kernel_edges(gen, n, d_in, m, d, dense_lq):
+    """K4 against its plain version, and bitwise equal across two launches."""
+    args = _cond_inputs(gen, n, m, d_in, d, dense_lq)
+    eps = torch.randn((n, d), generator=gen, device="cuda")
+    got = serve_cond.fused_conditional_infer(*args, eps)
+    with build.plain_versions():
+        ref = serve_cond.fused_conditional_infer(*args, eps)
+    for g, r, tol in zip(got, ref, (2e-3, 1e-4, 2e-3)):
+        _rel_close(g, r, tol)
+    again = serve_cond.fused_conditional_infer(*args, eps)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,d_in,m,d,dense_lq", COND_EDGES)
+def test_conditional_kernel_edges(gen, n, d_in, m, d, dense_lq):
+    """K5 'sample' with the residuals against its plain version, and
+    bitwise equal across two launches (at N = 10,240 on the d-split)."""
+    args = _cond_inputs(gen, n, m, d_in, d, dense_lq)
+    seed = torch.tensor(2 ** 33 + 5, dtype=torch.int64, device="cuda")
+    got = conditional.fused_forward(*args, seed, residuals=True)
+    with build.plain_versions():
+        ref = conditional.fused_forward(*args, seed, residuals=True)
+    for g, r in zip(got, ref):
+        _rel_close(g, r, 1e-5)
+    again = conditional.fused_forward(*args, seed, residuals=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_conditional_sample_is_deterministic_and_seeded(gen):
