@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    rank-deficient gram, with an empty kernel's time beside K1's; K2
    (epilogue with mean, without mean, q-variance only) at the serving
    shape (M=128, B=8192, S=100), and with mean at the training step's
-   shapes A [20,128,512] and [20,128,8192] (root D=8, cov D=1); K3 (its backward, in the same three
+   shapes A [20,128,512] and [20,128,8192] (root D=8, cov D=1), at ragged
+   N (1, 63, 65, 1000), M = 20, 100 and 264, D = 3 and 16 and L = 1, and
+   two launches bitwise equal; K3 (its backward, in the same three
    forms) at the training shapes A [20,128,512] and [20,128,8192], at
    M=100, and two launches bitwise equal at both shapes; K4
    (``serve_cond``, with and without the sample) and K5
@@ -428,11 +430,25 @@ EPI_TRAIN_CASES = [
 ]
 
 
+EPI_EDGE_CASES = [
+    # (L, M, N, D, cov, form): ragged N (one column, 64 +- 1, a last tile
+    # of 104), M below 128 and the chunked M > 128, D below and above a
+    # group of 8 outputs, a single L
+    (2, M, 1, 8, False, "epi"), (2, M, 63, 8, False, "epi"),
+    (2, M, 65, 1, True, "epi"), (2, M, 1000, 1, True, "ps"),
+    (2, 20, 1000, 8, False, "epi"), (2, 100, 1000, 8, True, "epi"),
+    (2, 264, 1000, 8, False, "epi"), (2, 264, 1000, 1, True, "epi"),
+    (2, M, 1000, 3, False, "qvar"), (2, M, 1000, 16, False, "epi"),
+    (1, M, 1000, 8, True, "epi"),
+]
+
+
 def epilogue_phase(torch, hopper, gen) -> list:
     """K2 against its plain version at the serving shape S=100, B=8192,
     M=128 (errors and times on the same inputs), at the training step's
-    shapes A [20,128,512] and [20,128,8192], and on a ragged N; one
-    kernels-line row per variant."""
+    shapes A [20,128,512] and [20,128,8192], on a ragged N and at the edge
+    cases of EPI_EDGE_CASES; two launches bitwise equal; one kernels-line
+    row per variant."""
     qvar = hopper.qvar
     cases = {"epi": [], "ps": [], "qvar": []}
     for label, D, cov, form in EPI_CASES:
@@ -445,11 +461,34 @@ def epilogue_phase(torch, hopper, gen) -> list:
     A, W, q_mu = _epi_inputs(torch, gen, 2, 8, 1000, False)
     ragged, _ = _epi_check(torch, qvar, "ragged N=1000, root D=8", A, W,
                            q_mu, False, "epi")
+    edges = {}
+    for L, m, n, d, cov, form in EPI_EDGE_CASES:
+        label = f"L={L} M={m} N={n} D={d} {'cov' if cov else 'root'} {form}"
+        A, W, q_mu = _epi_inputs(torch, gen, L, d, n, cov, m)
+        edges[label], _ = _epi_check(torch, qvar, label, A, W, q_mu, cov,
+                                     form)
+    # fixed-order sums, no atomics: two launches are bitwise equal
+    determinism = {}
+    for L, n, d, cov in ((S_SERVE, B_SERVE, 8, False),
+                         (L_TRAIN, B_TRAIN, 8, False),
+                         (L_TRAIN, B_BIG, 1, True)):
+        A, W, q_mu = _epi_inputs(torch, gen, L, d, n, cov)
+        a, b = qvar.epi_fused(A, W, q_mu, cov), qvar.epi_fused(A, W, q_mu, cov)
+        for name, x, y in zip(("qv", "ss", "mean"), a, b):
+            if not torch.equal(x, y):
+                fail(f"epilogue is not deterministic: {name} differs between "
+                     f"two launches (A [{L},{M},{n}], D={d}, cov={cov})")
+        determinism[f"A [{L},{M},{n}] D={d} {'cov' if cov else 'root'}"] = \
+            "bitwise equal"
+    del A, W, q_mu
+    torch.cuda.empty_cache()
     rows = [_entry(f"epilogue:{form}", "dgps_with_iwvi_torch/csrc/epilogue.cu",
                    K2_REPLACES[form], cases[form],
                    "qv 1e-4, ss 1e-5, mean 1e-4 x max|plain|")
             for form in ("epi", "ps", "qvar")]
     rows[0]["ragged_errs"] = ragged
+    rows[0]["edge_errs"] = edges
+    rows[0]["determinism"] = determinism
     return rows
 
 
@@ -1306,13 +1345,14 @@ AB_COND_CASES = [
 
 
 def _parent_libs(hopper, build, parent: str) -> dict:
-    """K1's, K3's, K4's and K5's libraries of the tree at `parent`, each
+    """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
     directory and bound with this tree's signatures (the C interfaces are
     the same)."""
     import ctypes
 
     sigs = {"chol_inv": hopper.chol.SIGNATURES,
+            "epilogue": hopper.qvar.SIGNATURES,
             "epilogue_bwd": hopper.qvar.BWD_SIGNATURES,
             "serve_cond": hopper.serve_cond.SIGNATURES,
             "conditional": hopper.conditional.SIGNATURES}
@@ -1338,9 +1378,19 @@ def _parent_libs(hopper, build, parent: str) -> dict:
     return libs
 
 
+AB_EPI_CASES = [
+    # (L, N, D, cov, iterations): K2 at the serving layers and the
+    # training step's two launches at B=512 and 8192
+    (S_SERVE, B_SERVE, 8, False, 10), (S_SERVE, B_SERVE, 1, False, 10),
+    (20, 512, 8, False, 50), (20, 512, 1, True, 50),
+    (20, 8192, 8, False, 20), (20, 8192, 1, True, 20),
+]
+
+
 def ab_kernels(torch, hopper, linalg, build, parent: str, model,
                gen) -> dict:
-    """K1 (served Kuu, natgrad P), K3 (every form at B=512 and 8192), K4
+    """K1 (served Kuu, natgrad P), K2 (serving and training shapes), K3
+    (every form at B=512 and 8192), K4
     and K5 (at the serving and training shapes) of the tree at `parent`
     and of this one, on the same inputs, timed in turns (parent, change,
     change, parent). The wrappers load a library through
@@ -1350,6 +1400,7 @@ def ab_kernels(torch, hopper, linalg, build, parent: str, model,
     k4, k5 = hopper.serve_cond, hopper.conditional
     libs = {"parent": _parent_libs(hopper, build, parent),
             "change": {"chol_inv": chol._lib(),
+                       "epilogue": build.library(qvar.NAME, qvar.SIGNATURES),
                        "epilogue_bwd": build.library(qvar.BWD_NAME,
                                                      qvar.BWD_SIGNATURES),
                        "serve_cond": build.library(k4.NAME, k4.SIGNATURES),
@@ -1365,6 +1416,11 @@ def ab_kernels(torch, hopper, linalg, build, parent: str, model,
               lambda: chol.chol_inv(Kuu, jit), 200),
              (f"K1 natgrad P [1,{M},{M}] x 2 levels",
               lambda: chol.chol_inv(P, jit_ng), 200)]
+    for L, n, d, cov, iters in AB_EPI_CASES:
+        args = _epi_inputs(torch, gen, L, d, n, cov)
+        cases.append((f"K2 epi {'cov' if cov else 'root'} D={d}, "
+                      f"A [{L},{M},{n}]",
+                      lambda a=args, c=cov: qvar.epi_fused(*a, c), iters))
     for n in (B_TRAIN, B_BIG):
         for label, form, d, cov in BWD_FORMS:
             args = _bwd_inputs(torch, gen, L_TRAIN, M, n, d, cov)
@@ -1435,9 +1491,10 @@ def _ab_summary(tree: str, profiled: bool, rec: dict) -> dict:
                                         "wall_ms_per_step", "idle_share",
                                         "kernel_launches_per_step")}
             s[key]["kernels"] = p["kernels_ms_per_step"][:12]
-        for route, key in (("serve_pallas", "profile_serve_default"),
-                           ("use_pallas", "profile_serve_use_pallas")):
-            sp = ps[route]["profile"]
+        routes = [(ps["serve_pallas"]["profile"], "profile_serve_default"),
+                  (ps["use_pallas"]["profile"], "profile_serve_use_pallas"),
+                  (rec["profile"], "profile_serve_k2_route")]
+        for sp, key in routes:
             s[key] = {k: sp[k] for k in ("device_ms_per_request",
                                          "wall_ms_per_request",
                                          "idle_share")}
@@ -1478,8 +1535,7 @@ def main() -> int:
                     "record device time by kernel and the idle share")
     ap.add_argument("--ab", metavar="PARENT",
                     help="instead of the smoke run, time this tree against "
-                    "the checkout at PARENT on one card: K1, K3, K4 and K5 "
-                    "in turns "
+                    "the checkout at PARENT on one card: K1 to K5 in turns "
                     "on the same inputs, then both trees' chip_smoke.py in "
                     "turns; needs --out (DIR/ab.json)")
     opts = ap.parse_args()

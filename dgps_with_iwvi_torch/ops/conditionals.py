@@ -189,7 +189,7 @@ def conditional(
     """End-to-end whitened conditional: grams -> chol -> solve -> moments.
 
     Inducing points only; the non-whitened parameterization and the
-    multiscale features wait for ROADMAP queue 8. kuf_residual: whether
+    multiscale features wait for ROADMAP queue 7. kuf_residual: whether
     the cross gram may keep its output as its backward residual
     (``ops/kernels.py``). use_pallas=True takes the whole conditional
     through K5 ``fused`` (every dot at f32, whatever the precision
@@ -198,7 +198,7 @@ def conditional(
     if not white:
         raise NotImplementedError(
             "the non-whitened conditional is not ported yet (ROADMAP "
-            "queue 8)")
+            "queue 7)")
     if Lm is None:
         Kuu = kernels.K(kernel_params, Z, Z, kind=kernel_kind)
         Lm = cholesky_with_jitter(Kuu, jitter, max_tries=jitter_tries)

@@ -148,6 +148,22 @@ def _check(kernel, A, W, q_mu, named):
     return L
 
 
+_wop_cache: dict = {}
+
+
+def _wop_scratch(lib, device, stream: int, m: int, d: int) -> torch.Tensor:
+    """K2's bf16 scratch (W's blocks and q_mu's split, written by the call
+    itself), kept per (device, stream) and grown as needed: calls on one
+    stream run in order, so one buffer serves them all."""
+    elems = lib.epilogue_wop_elems(m, d)
+    key = (device.index, stream)
+    buf = _wop_cache.get(key)
+    if buf is None or buf.numel() < elems:
+        buf = torch.empty((elems,), dtype=torch.bfloat16, device=device)
+        _wop_cache[key] = buf
+    return buf
+
+
 def _launch(A, W, q_mu, cov: bool, with_ss: bool):
     L = _check(NAME, A, W, q_mu, [])
     lib = build.library(NAME, SIGNATURES)
@@ -160,9 +176,8 @@ def _launch(A, W, q_mu, cov: bool, with_ss: bool):
     qv = torch.empty((L, d, n), **f32)
     ss = torch.empty((L, n), **f32) if with_ss else None
     mean = torch.empty((L, d, n), **f32) if q_mu is not None else None
-    wop = torch.empty((lib.epilogue_wop_elems(m, d),), dtype=torch.bfloat16,
-                      device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
+    wop = _wop_scratch(lib, A.device, stream, m, d)
     err = lib.epilogue_launch(_ptr(Ac), _ptr(Wc), _ptr(qc), _ptr(qv),
                               _ptr(ss), _ptr(mean), _ptr(wop), L, m, n, d,
                               int(cov), A.device.index or 0, stream)

@@ -6,7 +6,7 @@ the cross gram's backward that keeps its output as the residual
 (``_rbf_gram_kres``, l.216-263), taken by the reference's size rule
 (``_use_kuf_residual``, l.185: float32 and at least 4 MB, so the M x M
 Kuu grams stay on plain autograd). Every other kernel kind raises until
-ROADMAP queue 8 ports the kernel family.
+ROADMAP queue 7 ports the kernel family.
 
 The squared distance uses the ||x||^2 - 2 x.y + ||y||^2 expansion with the
 cross term at the ``highest`` class (the expansion cancels
@@ -30,7 +30,7 @@ GRAM_KRES_MIN_BYTES = 4 * 1024 * 1024
 def _check_kind(kind: str) -> None:
     if kind != "rbf":
         raise NotImplementedError(
-            f"kernel kind {kind!r} is not ported yet (ROADMAP queue 8); "
+            f"kernel kind {kind!r} is not ported yet (ROADMAP queue 7); "
             "the port has 'rbf' only")
 
 

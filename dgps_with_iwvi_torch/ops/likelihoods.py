@@ -3,7 +3,7 @@
 Serving needs the predictive moments and density, training the analytic
 variational expectations; the dispatch functions mirror
 ``likelihoods.py:808-826`` for ``gaussian`` only. The other families wait
-for ROADMAP queue 8.
+for ROADMAP queue 7.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ _LOG2PI = float(math.log(2.0 * math.pi))
 def _check_kind(kind: str) -> None:
     if kind != "gaussian":
         raise NotImplementedError(
-            f"likelihood {kind!r} is not ported yet (ROADMAP queue 8); the "
+            f"likelihood {kind!r} is not ported yet (ROADMAP queue 7); the "
             "port has 'gaussian' only")
 
 

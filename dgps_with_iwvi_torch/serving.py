@@ -8,7 +8,7 @@ card and returns ``mean`` / ``var`` / ``log_density`` on the host.
 
 The reference also freezes the scorer into a StableHLO artifact
 (``export_scorer``, ``save_scorer``, ``load_scorer``); its counterpart
-with ``torch.export`` is later work (ROADMAP queue 7).
+with ``torch.export`` is later work (ROADMAP queue 6).
 """
 
 from __future__ import annotations

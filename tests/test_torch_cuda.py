@@ -103,22 +103,34 @@ def test_rank_deficient_gram_climbs_the_ladder(gen):
     assert bool(torch.isfinite(Linv).all())
 
 
-# M is worked through in chunks of 128 rows, padded with zeros in the kernel
-@pytest.mark.parametrize("m", [128, 100, 20, 264])
-@pytest.mark.parametrize("d,cov,with_mean", [(8, False, True),
-                                             (1, False, True),
-                                             (8, True, True),
-                                             (3, False, False),
-                                             (1, True, False)])
-def test_epilogue_kernel_matches_plain(gen, m, d, cov, with_mean):
-    n = 1000  # ragged: 7 full column tiles and one of 104
-    A = torch.randn((2, m, n), generator=gen, device="cuda") / math.sqrt(m)
+def _epi_inputs(gen, L, m, n, d, cov):
+    A = torch.randn((L, m, n), generator=gen, device="cuda") / math.sqrt(m)
     W = 0.1 * torch.tril(torch.randn((d, m, m), generator=gen,
                                      device="cuda")) + torch.eye(m,
                                                                  device="cuda")
     if cov:
         W = W @ W.transpose(-1, -2)
-    q_mu = torch.randn((m, d), generator=gen, device="cuda")
+    return A, W, torch.randn((m, d), generator=gen, device="cuda")
+
+
+# M is worked through in chunks of 128 rows, padded with zeros in the
+# kernel; N = 1000 is ragged (7 full column tiles and one of 104); then one
+# column, 64 + 1 columns, 16 outputs (two groups of 8), a single L, and the
+# covariance form with the mean at M = 264
+EPI_KERNEL_CASES = [
+    (2, m, 1000, d, cov, with_mean) for m in (128, 100, 20, 264)
+    for d, cov, with_mean in ((8, False, True), (1, False, True),
+                              (8, True, True), (3, False, False),
+                              (1, True, False))
+] + [(2, 128, 1, 8, False, True), (2, 128, 65, 8, False, True),
+     (2, 128, 65, 1, True, True), (2, 128, 1, 1, True, False),
+     (2, 128, 1000, 16, False, True), (1, 128, 1000, 8, False, True),
+     (1, 128, 1000, 1, True, True), (2, 264, 1000, 1, True, True)]
+
+
+@pytest.mark.parametrize("L,m,n,d,cov,with_mean", EPI_KERNEL_CASES)
+def test_epilogue_kernel_matches_plain(gen, L, m, n, d, cov, with_mean):
+    A, W, q_mu = _epi_inputs(gen, L, m, n, d, cov)
     if with_mean:
         got = qvar.epi_fused(A, W, q_mu, cov)
         ref = qvar.epi_plain(A, W, q_mu, cov)
@@ -129,6 +141,18 @@ def test_epilogue_kernel_matches_plain(gen, m, d, cov, with_mean):
         assert g.shape == r.shape
         torch.testing.assert_close(g, r, rtol=0,
                                    atol=rel * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("L,n,d,cov", [(20, 512, 8, False),
+                                       (20, 512, 1, True),
+                                       (3, 1000, 16, False)])
+def test_epilogue_kernel_is_deterministic(gen, L, n, d, cov):
+    """Fixed-order sums and no atomics: two launches are bitwise equal."""
+    A, W, q_mu = _epi_inputs(gen, L, 128, n, d, cov)
+    first = qvar.epi_fused(A, W, q_mu, cov)
+    second = qvar.epi_fused(A, W, q_mu, cov)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_epilogue_kernel_rejects_unsupported_shapes(gen):

@@ -1,0 +1,68 @@
+"""The port's "not ported yet" errors name the ROADMAP queue-1 item that
+ports what they refuse: item 7 (breadth) for other kernel kinds, other
+likelihoods, the non-whitened conditional and KL and hyperparameter
+priors; item 8 (parallel) for the sharded trainer. The items are written
+out here, so that a rewrite of ROADMAP.md cannot break this test."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from dgps_with_iwvi_torch.models import BuildArgs, build_config
+from dgps_with_iwvi_torch.models import dgp, layers
+from dgps_with_iwvi_torch.ops import conditionals, kernels, likelihoods
+from dgps_with_iwvi_torch.training import TrainConfig, fit
+
+
+def _config():
+    return build_config(BuildArgs(configuration="LGG", mode="IW",
+                                  num_inducing=4, num_iw_samples=2), 2, 1, 8)
+
+
+def _unknown_kernel_kind():
+    kp = kernels.rbf_params(2, device="cpu")
+    Z = torch.zeros(4, 2)
+    kernels.K(kp, Z, Z, kind="matern32")
+
+
+def _unknown_likelihood():
+    likelihoods.init_params("bernoulli", device="cpu")
+
+
+def _non_whitened_conditional():
+    Z = torch.zeros(4, 2)
+    conditionals.conditional(torch.zeros(3, 2), Z,
+                             kernels.rbf_params(2, device="cpu"),
+                             torch.zeros(4, 1), torch.eye(4)[None],
+                             white=False)
+
+
+def _non_whitened_kl():
+    cfg = next(c for c in _config().layers
+               if isinstance(c, layers.GPLayerConfig))
+    layers.gp_layer_kl({}, dataclasses.replace(cfg, white=False))
+
+
+def _hyperparameter_priors():
+    config = dataclasses.replace(_config(), priors=("lengthscales",))
+    dgp.elbo(None, config, torch.zeros(3, 2), torch.zeros(3, 1))
+
+
+def _sharded_trainer():
+    fit(torch.Generator(), _config(), None, torch.zeros(8, 2),
+        torch.zeros(8, 1), TrainConfig(), mesh=object())
+
+
+@pytest.mark.parametrize("raise_site,item", [
+    (_unknown_kernel_kind, 7),
+    (_unknown_likelihood, 7),
+    (_non_whitened_conditional, 7),
+    (_non_whitened_kl, 7),
+    (_hyperparameter_priors, 7),
+    (_sharded_trainer, 8),
+], ids=lambda v: getattr(v, "__name__", str(v)).strip("_"))
+def test_not_ported_errors_name_their_queue_item(raise_site, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"\(ROADMAP\s+queue {item}\)"):
+        raise_site()
