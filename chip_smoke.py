@@ -50,7 +50,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``use_pallas`` (the inner layer in K5 'sample'), natgrad final (per
    step K5 'sample', K2 and K3 once, K1 twice) and Adam alone (the final
    layer in K5 'fused' and its backward), each with one step against the
-   plain versions.
+   plain versions;
+6. harness: ``experiments.main.run`` as a user runs it, on the kin8nm
+   surrogate (LGG IW K=20 M=128 B=512, natgrad final, 400 steps, S=100 at
+   evaluation, results and checkpoints in a temporary directory): K1, K2
+   and K3 launched twice per step, K4 twice per test chunk, a test NLL
+   above the untrained model's, a results row that fills the schema, and
+   a run resumed from the step-200 checkpoint whose step-400 state equals
+   the straight run's bit for bit.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path), then the card's name and power limit, then
@@ -623,12 +630,20 @@ def epilogue_bwd_phase(torch, hopper, gen) -> tuple:
     return rows, {"m100_errs": m100, "determinism": determinism}
 
 
+# the harness phase's evaluation: the kin8nm surrogate's 820 test rows go
+# through in one chunk at S=100, so K4 sees N = 82,000 rows, whose last
+# 128-row tile is partial (82,000 = 640 x 128 + 80)
+HARNESS_TEST_ROWS, HARNESS_SAMPLES = 820, 100
 FUSED_CASES = [
     # (label, N, d_in, M, D, layer): layer names the main path's shapes
     ("serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X, "inner"),
     ("serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "final"),
     ("training inner layer", 20 * 512, D_X + 1, M, D_X, "train"),
     ("training final layer (Adam only)", 20 * 512, D_X, M, 1, "train_final"),
+    ("harness test set inner layer", HARNESS_TEST_ROWS * HARNESS_SAMPLES,
+     D_X + 1, M, D_X, None),
+    ("harness test set final layer", HARNESS_TEST_ROWS * HARNESS_SAMPLES,
+     D_X, M, 1, None),
     ("ragged N=1000", 1000, D_X + 1, M, D_X, None),
     ("M=100", 1000, D_X + 1, 100, D_X, None),
     ("M=200", 1000, D_X + 1, 200, D_X, None),
@@ -1326,6 +1341,161 @@ def _pallas_train(torch, train, build, config, params, X, Y, tc, idx) -> dict:
     return out
 
 
+HARNESS_STEPS, HARNESS_RESUME_AT = 400, 200
+HARNESS_ARGS = ["--dataset", "kin8nm", "--configuration", "LGG", "--mode",
+                "IW", "--K", "20", "--M", "128", "--minibatch_size", "512",
+                "--natgrad", "final", "--iterations", str(HARNESS_STEPS),
+                "--steps_per_call", "100", "--num_predict_samples",
+                str(HARNESS_SAMPLES),
+                "--print_every", "100", "--ckpt_every",
+                str(HARNESS_RESUME_AT)]
+EVAL_BATCH = 4096  # evaluate's default batch_size
+
+
+def _checkpoint_leaves(path: str, torch) -> list:
+    """(name, value) of every leaf of a saved checkpoint."""
+    def leaves(tree, name):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree, key=str)
+                    for x in leaves(tree[k], f"{name}.{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree)
+                    for x in leaves(v, f"{name}[{i}]")]
+        return [(name, tree)]
+
+    return leaves(torch.load(path, map_location="cpu", weights_only=True),
+                  "")
+
+
+def harness_phase(torch, card: str) -> dict:
+    """The UCI harness on the card, as a user runs it: ``experiments.main
+    .run`` on the kin8nm surrogate (8192 x 8: 7372 train and 820 test
+    rows), LGG IW K=20 M=128, B=512, natgrad final, 400 steps in chunks of
+    100, S=100 at evaluation. Its K1, K2 and K3 launches must rise by 2
+    each per training step, and evaluation launch K4 twice per test chunk
+    (and K1 once), the final ELBO on the first 512 rows once more (K1 once
+    more for the canonical form of the trained q(u)); its
+    test NLL must beat the untrained model's on the same rows, and its
+    sqlite row must carry every column of the schema. Then a second run
+    restored from the step-200 checkpoint must end at step 400 with a
+    state (parameters, natgrad blocks, Adam's moments, the generator)
+    bitwise equal to the straight run's."""
+    import contextlib
+    import shutil
+    import sqlite3
+    import tempfile
+
+    from dgps_with_iwvi_torch.data import native_loader
+    from dgps_with_iwvi_torch.evaluation import Database
+    from dgps_with_iwvi_torch.evaluation.database import SCHEMA
+    from dgps_with_iwvi_torch.experiments import main as harness
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        db = os.path.join(tmp, "results.db")
+        straight, resumed = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+
+        def args(ckpt_dir, *extra):
+            # an empty data directory: the name-seeded surrogate
+            return harness.parse_args(HARNESS_ARGS + [
+                "--data_dir", os.path.join(tmp, "data"), "--results_db", db,
+                "--ckpt_dir", ckpt_dir, *extra])
+
+        exp = harness.setup(args(straight))
+        n_test = exp.data.X_test.shape[0]
+        untrained = harness.evaluate_model(args(straight), exp, exp.params)
+        del exp
+        chunks = -(-n_test // EVAL_BATCH)
+        if min(n_test, EVAL_BATCH) != HARNESS_TEST_ROWS:
+            fail(f"harness: evaluation chunks of {min(n_test, EVAL_BATCH)} "
+                 f"rows, but the K4 phase holds K4 to its plain version at "
+                 f"{HARNESS_TEST_ROWS} rows x S={HARNESS_SAMPLES}")
+
+        def want(steps):
+            # K1 also once for the trained q(u)'s canonical form, once per
+            # test chunk and once for the final ELBO
+            return {"chol_inv": 2 * steps + 1 + chunks + 1,
+                    "epilogue:epi": 2 * steps, "epilogue_bwd:epi": 2 * steps,
+                    "serve_cond:sample": chunks + 1,
+                    "serve_cond:infer": chunks + 1}
+
+        build.reset_launches()
+        row = harness.run(args(straight))
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != want(HARNESS_STEPS):
+            fail(f"harness: launches {counts}, want {want(HARNESS_STEPS)} "
+                 f"({HARNESS_STEPS} steps, {chunks} test chunk(s))")
+        for key in ("test_loglik", "test_rmse", "elbo"):
+            if not math.isfinite(row[key]):
+                fail(f"harness: {key} = {row[key]} is not finite")
+        if not row["test_loglik"] > untrained["test_loglik"]:
+            fail(f"harness: test loglik {row['test_loglik']} is not above "
+                 f"the untrained model's {untrained['test_loglik']}")
+        if not row["synthetic_data"] or row["backend"] != "cuda":
+            fail(f"harness: ran on {row['backend']}, synthetic "
+                 f"{row['synthetic_data']}")
+        with contextlib.closing(sqlite3.connect(":memory:")) as conn:
+            conn.executescript(SCHEMA)
+            schema = conn.execute("PRAGMA table_info(regression)").fetchall()
+        with contextlib.closing(sqlite3.connect(db)) as conn:
+            table = conn.execute("PRAGMA table_info(regression)").fetchall()
+        rows = Database(db).read("kin8nm")
+        if table != schema or len(rows) != 1 or any(
+                rows[0][c] is None for c in Database._COLS):
+            fail(f"harness: the results row {rows} does not fill the schema "
+                 f"{[c[1] for c in schema]}")
+
+        os.makedirs(resumed)
+        for name in (f"step_{HARNESS_RESUME_AT}.pt", "build_args.json"):
+            shutil.copy(os.path.join(straight, name), resumed)
+        build.reset_launches()
+        row_resumed = harness.run(args(resumed, "--resume"))
+        counts_resumed = {k: v for k, v in _path_counts(build).items() if v}
+        if counts_resumed != want(HARNESS_STEPS - HARNESS_RESUME_AT):
+            fail(f"harness resume: launches {counts_resumed}, want "
+                 f"{want(HARNESS_STEPS - HARNESS_RESUME_AT)}")
+        end = f"step_{HARNESS_STEPS}.pt"
+        a = _checkpoint_leaves(os.path.join(straight, end), torch)
+        b = _checkpoint_leaves(os.path.join(resumed, end), torch)
+        if [n for n, _ in a] != [n for n, _ in b]:
+            fail("harness resume: the two checkpoints differ in structure")
+        differ = [n for (n, x), (_, y) in zip(a, b)
+                  if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                          else x == y)]
+        if differ:
+            fail(f"harness resume: the resumed state differs from the "
+                 f"straight run's at step {HARNESS_STEPS} in {differ}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"run": "experiments.main.run " + " ".join(HARNESS_ARGS),
+           "n_test": n_test, "test_chunks": chunks,
+           "native_kmeans": native_loader.native_available(),
+           "test_loglik": row["test_loglik"], "test_rmse": row["test_rmse"],
+           "untrained_test_loglik": untrained["test_loglik"],
+           "untrained_test_rmse": untrained["test_rmse"],
+           "elbo": row["elbo"], "steps_per_s": row["steps_per_sec"],
+           "train_time_s": row["train_time_s"],
+           "steps_per_s_wall": HARNESS_STEPS / row["train_time_s"],
+           "launches": counts,
+           "resumed": {"from_step": HARNESS_RESUME_AT,
+                       "test_loglik": row_resumed["test_loglik"],
+                       "steps_per_s": row_resumed["steps_per_sec"],
+                       "launches": counts_resumed,
+                       "state_bitwise_equal": True,
+                       "leaves_compared": len(a)}}
+    print(f"harness: kin8nm surrogate, LGG IW K=20 M=128 B=512, "
+          f"{HARNESS_STEPS} steps: test_loglik {row['test_loglik']:.4f} "
+          f"(untrained {untrained['test_loglik']:.4f}), test_rmse "
+          f"{row['test_rmse']:.4f}, {row['steps_per_sec']:.1f} steps/s "
+          f"(median of the chunks after the first), "
+          f"{HARNESS_STEPS / row['train_time_s']:.1f} over the whole "
+          f"{row['train_time_s']:.2f} s of training; "
+          f"resumed from step {HARNESS_RESUME_AT}: state bitwise equal; "
+          f"on {card}")
+    return rec
+
+
 AB_ORDER = ("parent", "change", "change", "parent")
 AB_COND_CASES = [
     # (label, N, d_in, M, D, kernel, sample, residuals, iterations)
@@ -1603,6 +1773,7 @@ def main() -> int:
     rec["slice"] = slice_phase(torch, model, rec, opts.profile)
     rec["pallas_serving"] = pallas_serving_phase(torch, model, opts.profile)
     rec["train"] = train_phase(torch, card, opts.profile)
+    rec["harness"] = harness_phase(torch, card)
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
         wall = rec["slice"]["serve_s"] * 1e3 / REQUESTS
@@ -1618,7 +1789,8 @@ def main() -> int:
              "train_use_pallas":
                  rec["train"]["use_pallas"]["natgrad final"]["launches"],
              "train_use_pallas_adam":
-                 rec["train"]["use_pallas"]["Adam only"]["launches"]}
+                 rec["train"]["use_pallas"]["Adam only"]["launches"],
+             "harness": rec["harness"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -1637,6 +1809,7 @@ def main() -> int:
     print("fused checks: " + json.dumps(rec["fused_checks"]))
     print("train: " + json.dumps(rec["train"]))
     print("epilogue_bwd checks: " + json.dumps(rec["epilogue_bwd_checks"]))
+    print("harness: " + json.dumps(rec["harness"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

@@ -16,12 +16,16 @@ takes its plain PyTorch version.
 
 Ported so far: the serving path (``models.predict_y_and_log_density`` and
 ``serving.Scorer``), the single-device trainer (``training``: the
-objectives, natural gradients, ``make_trainer`` and ``fit``) and the
-fused-conditional routes (``DGPConfig.use_pallas`` and ``serve_pallas``),
-so every Pallas kernel of the reference has a counterpart. Data, CLI,
-checkpoints and the parallel trainer come in later slices (ROADMAP.md).
+objectives, natural gradients, ``make_trainer``, ``fit``, checkpoints and
+the monitor), the fused-conditional routes (``DGPConfig.use_pallas`` and
+``serve_pallas``), so every Pallas kernel of the reference has a
+counterpart, and the UCI regression harness: ``data``, ``evaluation`` and
+``experiments.main`` (``python -m dgps_with_iwvi_torch.experiments.main``).
+The serving export, the likelihood and kernel families and the parallel
+trainer come in later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
 
-from . import models, ops, params, serving, training  # noqa: F401
+from . import (data, evaluation, models, ops, params, serving,  # noqa: F401
+               training)

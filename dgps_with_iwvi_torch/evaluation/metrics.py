@@ -1,0 +1,100 @@
+"""Test metrics: mixture test log-likelihood and RMSE in original y units
+(port of dgps_with_iwvi_tpu/evaluation/metrics.py:68-199).
+
+Each test point is scored by the equally weighted mixture of S
+prior-latent samples, p(y*) ~= (1/S) sum_s N(y* | m_s, v_s + s2), through
+the serving call ``models.predict_y_and_log_density``; the log-likelihood
+shifts by -sum log(sigma_y) and the RMSE scales by sigma_y, so both are in
+original units.
+
+The test set goes through in chunks of ``batch_size`` rows, the last one
+padded to that size and masked, so every chunk runs at one shape. A chunk
+draws its noise from its own torch generator, seeded from ``seed`` and the
+chunk's first row: the counterpart of the reference's
+``fold_in(key, start)``. Outputs stay on the device until every chunk is
+queued and come to the host in one copy. The loop runs under
+``torch.no_grad()``, so on the card ``DGPConfig.serve_pallas="auto"``
+takes the inference kernel K4.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import predict_y_and_log_density
+from ..params import params_to_device
+
+
+def chunk_seed(seed: int, start: int) -> int:
+    """Generator seed of the chunk whose first row is `start`: (seed,
+    start) mixed into 64 bits by numpy's SeedSequence, so that the low 32
+    bits, all that the CPU generator keeps, differ too."""
+    return int(np.random.SeedSequence([int(seed), int(start)])
+               .generate_state(1, np.uint64)[0])
+
+
+def _batch_eval(params, config, xb, yb, seed: int, start: int,
+                num_samples: int):
+    """(log_density [B], mix_mean [B, d_y]) of the chunk at `start`."""
+    gen = torch.Generator(device=xb.device).manual_seed(
+        chunk_seed(seed, start))
+    (mean, _), ld = predict_y_and_log_density(params, config, xb, yb, gen,
+                                              num_samples)
+    return ld, mean
+
+
+def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
+             num_samples: int = 100, batch_size: int = 4096,
+             likelihood: str = "gaussian", mesh=None,
+             device="cuda") -> dict:
+    """-> dict(test_loglik, test_rmse, test_loglik_normalized,
+    test_rmse_normalized).
+
+    test_loglik is the mean per-point mixture log-density in ORIGINAL
+    units; test_rmse the root-mean-square error of the mixture mean, in
+    original units. X_test [n, d_x] and Y_test [n, d_y] are numpy arrays
+    or tensors in the model's dtype (standardized); y_std the train split's
+    label scale. Runs on `device` (the card unless the caller asks for the
+    CPU); params are moved there."""
+    if likelihood != "gaussian":
+        raise NotImplementedError(
+            f"evaluation under the {likelihood!r} likelihood is not ported "
+            "yet (ROADMAP queue 7); the port has 'gaussian' only")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded evaluation is not ported yet (ROADMAP queue 8)")
+    device = resolve_device(device)
+    params = params_to_device(params, device)
+    X = torch.as_tensor(X_test).to(device)
+    Y = torch.as_tensor(Y_test).to(device)
+    n = X.shape[0]
+    bs = min(batch_size, n)
+
+    outs = []
+    with torch.no_grad():
+        for start in range(0, n, bs):
+            xb, yb = X[start:start + bs], Y[start:start + bs]
+            pad = bs - xb.shape[0]
+            if pad:  # pad to the chunk size, mask after
+                xb = torch.cat([xb, xb.new_zeros((pad,) + xb.shape[1:])])
+                yb = torch.cat([yb, yb.new_zeros((pad,) + yb.shape[1:])])
+            ld, mean = _batch_eval(params, config, xb, yb, seed, start,
+                                   num_samples)
+            outs.append(torch.cat([ld[:bs - pad, None], mean[:bs - pad]], 1))
+        host = torch.cat(outs).cpu().numpy()    # the one copy to the host
+    lds, means = host[:, 0], host[:, 1:]
+    ys = np.asarray(torch.as_tensor(Y_test).cpu())   # [n, d_y]
+    ld_norm = float(lds.mean())
+    errs = means - ys                                  # in model units
+    rmse_norm = float(np.sqrt(np.mean(np.sum(errs ** 2, -1))))
+    y_std = np.asarray(y_std).reshape(1, -1)
+    rmse_orig = float(np.sqrt(np.mean(np.sum((errs * y_std) ** 2, -1))))
+    log_sigma = float(np.sum(np.log(y_std)))           # per-dim sum
+    return {
+        "test_loglik": ld_norm - log_sigma,
+        "test_rmse": rmse_orig,
+        "test_loglik_normalized": ld_norm,
+        "test_rmse_normalized": rmse_norm,
+    }

@@ -1,0 +1,3 @@
+"""Experiment harness (port of dgps_with_iwvi_tpu/experiments): ``main``
+is the UCI regression runner, ``run_suite`` the bayesian_benchmarks-style
+sweep runner. The batch scorer ``serve`` waits for ROADMAP queue 6."""

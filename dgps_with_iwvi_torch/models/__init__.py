@@ -1,7 +1,8 @@
 """DGP model stack: layers, encoders, the prediction path, builder
 (port of dgps_with_iwvi_tpu/models)."""
 
-from .builder import BuildArgs, build_config, build_model, kmeans_centers
+from .builder import (BuildArgs, build_config, build_model, kmeans_centers,
+                      load_build_args, save_build_args)
 from .dgp import (DGPConfig, elbo, gp_kls, init_dgp, numerics_of, predict_f,
                   predict_log_density, predict_y, predict_y_and_log_density,
                   prefactor_gp_layers, propagate)
@@ -19,6 +20,7 @@ __all__ = [
     "gp_kls",
     "init_dgp",
     "kmeans_centers",
+    "load_build_args",
     "numerics_of",
     "predict_f",
     "predict_log_density",
@@ -26,4 +28,5 @@ __all__ = [
     "predict_y_and_log_density",
     "prefactor_gp_layers",
     "propagate",
+    "save_build_args",
 ]

@@ -3,17 +3,21 @@
 
 Tokens 'G' (GP layer) and 'L' (latent-variable layer), e.g. 'LGG'; inner
 GP width min(d_x, inner_dim_cap); Z of the first GP layer from k-means on
-the standardized inputs (Lloyd's iterations in torch, from an explicit
-generator), deeper layers reuse those centres padded or truncated to
-their width.
+the standardized inputs, deeper layers reuse those centres padded or
+truncated to their width. The k-means is the reference's: the native
+kmeans++ of ``native/libdgpdata.so`` where N > M and the library loads,
+else Lloyd's iterations in torch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import torch
 
+from ..data import native_loader
 from ..device import as_tensor, resolve_device
 from .dgp import DGPConfig, init_dgp
 from .layers import GPLayerConfig, LVLayerConfig
@@ -45,6 +49,37 @@ class BuildArgs:
     solve_precision: str = "high"
     use_pallas: bool | str = "auto"   # DGPConfig.use_pallas
     serve_pallas: bool | str = "auto"  # DGPConfig.serve_pallas
+
+
+def save_build_args(ckpt_dir: str, args: BuildArgs, **train_meta) -> str:
+    """Write the whole BuildArgs to ckpt_dir/build_args.json beside the
+    checkpoints, so a later run rebuilds the exact model structure.
+
+    Extra keyword arguments (e.g. natgrad='final', which fixes the
+    TrainState layout a restore template must match) are stored under
+    '_train'."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "build_args.json")
+    d = dataclasses.asdict(args)
+    if train_meta:
+        d["_train"] = train_meta
+    with open(path, "w") as f:
+        json.dump(d, f, indent=1)
+    return path
+
+
+def load_build_args(ckpt_dir: str, with_meta: bool = False):
+    """Inverse of save_build_args; None when no build_args.json exists.
+    with_meta=True returns (BuildArgs, train_meta_dict) instead."""
+    path = os.path.join(ckpt_dir, "build_args.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        d = json.load(f)
+    meta = d.pop("_train", {})
+    d["encoder_hidden"] = tuple(d["encoder_hidden"])  # JSON gives a list
+    build = BuildArgs(**d)
+    return (build, meta) if with_meta else build
 
 
 def kmeans_centers(X: torch.Tensor, k: int, generator: torch.Generator,
@@ -123,14 +158,27 @@ def build_model(seed: int, args: BuildArgs, X, Y, *, device="cuda",
                 dtype=torch.float32):
     """(config, params) for a standardized dataset (X [N, d_x], Y [N, d_y],
     numpy arrays or tensors), on `device`, from a torch generator seeded
-    with `seed`."""
+    with `seed`.
+
+    The generator's first draw seeds the k-means, as the reference's first
+    key of its split does (``builder.py:262-279``): the native kmeans++
+    where N > M and the library loads, else Lloyd's from a generator of
+    that seed; the parameters are drawn after it."""
     device = resolve_device(device)
     X = as_tensor(X, device, dtype)
     Y = as_tensor(Y, device, dtype)
     d_x, d_y = X.shape[1], Y.shape[1]
     config = build_config(args, d_x, d_y, num_data=X.shape[0])
     gen = torch.Generator(device=device).manual_seed(seed)
-    Zx = kmeans_centers(X, args.num_inducing, gen)               # [M, d_x]
+    km_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                device=device))
+    if X.shape[0] > args.num_inducing and native_loader.native_available():
+        Zx = as_tensor(native_loader.kmeans(X.cpu().numpy(),
+                                            args.num_inducing, seed=km_seed),
+                       device, dtype)
+    else:
+        Zx = kmeans_centers(X, args.num_inducing, torch.Generator(
+            device=device).manual_seed(km_seed))
     Z_inits = []
     for cfg in config.layers:
         if isinstance(cfg, GPLayerConfig):

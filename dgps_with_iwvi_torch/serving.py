@@ -36,6 +36,16 @@ class NormalizationStats:
     y_mean: np.ndarray  # [1, d_out]
     y_std: np.ndarray
 
+    @classmethod
+    def from_dataset(cls, data) -> "NormalizationStats":
+        """From a ``data.Dataset`` (X_mean, X_std, Y_mean, Y_std)."""
+        return cls(
+            x_mean=np.asarray(data.X_mean, np.float32).reshape(1, -1),
+            x_std=np.asarray(data.X_std, np.float32).reshape(1, -1),
+            y_mean=np.asarray(data.Y_mean, np.float32).reshape(1, -1),
+            y_std=np.asarray(data.Y_std, np.float32).reshape(1, -1),
+        )
+
 
 def make_scorer_fn(params, config, num_samples: int,
                    stats: NormalizationStats | None = None, *,

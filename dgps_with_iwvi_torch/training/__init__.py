@@ -1,6 +1,6 @@
-"""Training of the port: natural gradients and the trainer
-(port of dgps_with_iwvi_tpu/training; checkpoints and the monitor wait for
-ROADMAP queue 6)."""
+"""Training of the port: natural gradients, the trainer, and (in their
+own modules) ``checkpoint`` and ``monitor``
+(port of dgps_with_iwvi_tpu/training)."""
 
 from .natgrad import (extract_natvars, insert_natvars, natgrad_layer_ids,
                       natgrad_update, natvars_to_canonical)

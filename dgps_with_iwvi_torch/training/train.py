@@ -269,8 +269,9 @@ def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
     The reference fires the callback one chunk behind its asynchronous
     dispatch; here the state is updated in place, so the callback runs
     right after its chunk and sees that chunk's state. Pass ``state`` to
-    continue a run (from a chunk boundary; checkpoints come with ROADMAP
-    queue 6). Returns (canonical params, state)."""
+    continue a run from a chunk boundary, e.g. one restored by
+    ``training.checkpoint.restore_checkpoint`` together with the
+    generator's state. Returns (canonical params, state)."""
     if mesh is not None:
         raise NotImplementedError(
             "the sharded trainer is not ported yet (ROADMAP queue 8)")

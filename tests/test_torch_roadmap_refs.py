@@ -1,14 +1,19 @@
 """The port's "not ported yet" errors name the ROADMAP queue-1 item that
 ports what they refuse: item 7 (breadth) for other kernel kinds, other
-likelihoods, the non-whitened conditional and KL and hyperparameter
-priors; item 8 (parallel) for the sharded trainer. The items are written
-out here, so that a rewrite of ROADMAP.md cannot break this test."""
+likelihoods, the non-whitened conditional and KL, hyperparameter priors,
+and the harness's flags and evaluation of those; item 8 (parallel) for the
+sharded trainer, ``--shard`` and sharded evaluation. The items are written
+out here, so that a rewrite of ROADMAP.md cannot break this test. The
+harness refuses a flag before any work: the runs below name a dataset that
+does not exist, which would raise FileNotFoundError had loading begun."""
 
 import dataclasses
 
 import pytest
 import torch
 
+from dgps_with_iwvi_torch.evaluation import evaluate
+from dgps_with_iwvi_torch.experiments import main
 from dgps_with_iwvi_torch.models import BuildArgs, build_config
 from dgps_with_iwvi_torch.models import dgp, layers
 from dgps_with_iwvi_torch.ops import conditionals, kernels, likelihoods
@@ -54,6 +59,25 @@ def _sharded_trainer():
         torch.zeros(8, 1), TrainConfig(), mesh=object())
 
 
+def _evaluate_other_likelihood():
+    evaluate(None, _config(), torch.zeros(3, 2), torch.zeros(3, 1), 0,
+             y_std=1.0, likelihood="bernoulli", device="cpu")
+
+
+def _sharded_evaluation():
+    evaluate(None, _config(), torch.zeros(3, 2), torch.zeros(3, 1), 0,
+             y_std=1.0, mesh=object(), device="cpu")
+
+
+def _cli(name, *flags):
+    """A harness run with `flags`, on a dataset that does not exist."""
+    def run():
+        main.run(main.parse_args(["--dataset", "no_such_dataset",
+                                  "--data_dir", "no_such_dir", *flags]))
+    run.__name__ = f"cli_{name}"
+    return run
+
+
 @pytest.mark.parametrize("raise_site,item", [
     (_unknown_kernel_kind, 7),
     (_unknown_likelihood, 7),
@@ -61,6 +85,16 @@ def _sharded_trainer():
     (_non_whitened_kl, 7),
     (_hyperparameter_priors, 7),
     (_sharded_trainer, 8),
+    (_evaluate_other_likelihood, 7),
+    (_sharded_evaluation, 8),
+    (_cli("likelihood", "--likelihood", "bernoulli"), 7),
+    (_cli("kernel", "--kernel", "matern32"), 7),
+    (_cli("prior", "--prior", "noise_variance=lognormal(-2,1)"), 7),
+    (_cli("feature", "--feature", "multiscale"), 7),
+    (_cli("no_white", "--no_white"), 7),
+    (_cli("gram_fwd", "--gram_fwd_precision", "high"), 7),
+    (_cli("gram_bwd_relax", "--gram_bwd_relax"), 7),
+    (_cli("shard", "--shard"), 8),
 ], ids=lambda v: getattr(v, "__name__", str(v)).strip("_"))
 def test_not_ported_errors_name_their_queue_item(raise_site, item):
     with pytest.raises(NotImplementedError,
