@@ -57,7 +57,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and K3 launched twice per step, K4 twice per test chunk, a test NLL
    above the untrained model's, a results row that fills the schema, and
    a run resumed from the step-200 checkpoint whose step-400 state equals
-   the straight run's bit for bit.
+   the straight run's bit for bit;
+7. serve: ``experiments.serve.run`` (dgp-serve-torch) on phase 6's
+   step-400 checkpoint at S=100: the test split and an .npz table of
+   8 x 8192 raw rows on the live path (one K1 and two K4 per batch, the
+   .npz bitwise equal to the same batches through ``make_scorer_fn``, the
+   test split's mean log-density equal to phase 6's test loglik), then a
+   fixed-batch and a polymorphic 'cuda' artifact (``--export``,
+   ``--from_export``): no hand kernel launched, the fixed one within 1e-5
+   of max|value| of the live path on the plain versions fed the
+   artifact's noise, the polymorphic one scoring a 1-row last chunk; the
+   points/s of the live path, the artifact and ``--transport bfloat16``.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path), then the card's name and power limit, then
@@ -70,11 +80,14 @@ beside this script. ``--out DIR`` also writes the whole record to
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1367,7 +1380,7 @@ def _checkpoint_leaves(path: str, torch) -> list:
                   "")
 
 
-def harness_phase(torch, card: str) -> dict:
+def harness_phase(torch, card: str, tmp: str) -> dict:
     """The UCI harness on the card, as a user runs it: ``experiments.main
     .run`` on the kin8nm surrogate (8192 x 8: 7372 train and 820 test
     rows), LGG IW K=20 M=128, B=512, natgrad final, 400 steps in chunks of
@@ -1379,11 +1392,10 @@ def harness_phase(torch, card: str) -> dict:
     sqlite row must carry every column of the schema. Then a second run
     restored from the step-200 checkpoint must end at step 400 with a
     state (parameters, natgrad blocks, Adam's moments, the generator)
-    bitwise equal to the straight run's."""
+    bitwise equal to the straight run's. Runs in `tmp`, which the caller
+    keeps for the serve phase (the straight run's checkpoints in tmp/a)."""
     import contextlib
-    import shutil
     import sqlite3
-    import tempfile
 
     from dgps_with_iwvi_torch.data import native_loader
     from dgps_with_iwvi_torch.evaluation import Database
@@ -1391,83 +1403,79 @@ def harness_phase(torch, card: str) -> dict:
     from dgps_with_iwvi_torch.experiments import main as harness
     from dgps_with_iwvi_torch.ops.hopper import build
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
-    try:
-        db = os.path.join(tmp, "results.db")
-        straight, resumed = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    db = os.path.join(tmp, "results.db")
+    straight, resumed = os.path.join(tmp, "a"), os.path.join(tmp, "b")
 
-        def args(ckpt_dir, *extra):
-            # an empty data directory: the name-seeded surrogate
-            return harness.parse_args(HARNESS_ARGS + [
-                "--data_dir", os.path.join(tmp, "data"), "--results_db", db,
-                "--ckpt_dir", ckpt_dir, *extra])
+    def args(ckpt_dir, *extra):
+        # an empty data directory: the name-seeded surrogate
+        return harness.parse_args(HARNESS_ARGS + [
+            "--data_dir", os.path.join(tmp, "data"), "--results_db", db,
+            "--ckpt_dir", ckpt_dir, *extra])
 
-        exp = harness.setup(args(straight))
-        n_test = exp.data.X_test.shape[0]
-        untrained = harness.evaluate_model(args(straight), exp, exp.params)
-        del exp
-        chunks = -(-n_test // EVAL_BATCH)
-        if min(n_test, EVAL_BATCH) != HARNESS_TEST_ROWS:
-            fail(f"harness: evaluation chunks of {min(n_test, EVAL_BATCH)} "
-                 f"rows, but the K4 phase holds K4 to its plain version at "
-                 f"{HARNESS_TEST_ROWS} rows x S={HARNESS_SAMPLES}")
+    exp = harness.setup(args(straight))
+    n_test = exp.data.X_test.shape[0]
+    untrained = harness.evaluate_model(args(straight), exp, exp.params)
+    del exp
+    chunks = -(-n_test // EVAL_BATCH)
+    if min(n_test, EVAL_BATCH) != HARNESS_TEST_ROWS:
+        fail(f"harness: evaluation chunks of {min(n_test, EVAL_BATCH)} "
+             f"rows, but the K4 phase holds K4 to its plain version at "
+             f"{HARNESS_TEST_ROWS} rows x S={HARNESS_SAMPLES}")
 
-        def want(steps):
-            # K1 also once for the trained q(u)'s canonical form, once per
-            # test chunk and once for the final ELBO
-            return {"chol_inv": 2 * steps + 1 + chunks + 1,
-                    "epilogue:epi": 2 * steps, "epilogue_bwd:epi": 2 * steps,
-                    "serve_cond:sample": chunks + 1,
-                    "serve_cond:infer": chunks + 1}
+    def want(steps):
+        # K1 also once for the trained q(u)'s canonical form, once per
+        # test chunk and once for the final ELBO
+        return {"chol_inv": 2 * steps + 1 + chunks + 1,
+                "epilogue:epi": 2 * steps, "epilogue_bwd:epi": 2 * steps,
+                "serve_cond:sample": chunks + 1,
+                "serve_cond:infer": chunks + 1}
 
-        build.reset_launches()
-        row = harness.run(args(straight))
-        counts = {k: v for k, v in _path_counts(build).items() if v}
-        if counts != want(HARNESS_STEPS):
-            fail(f"harness: launches {counts}, want {want(HARNESS_STEPS)} "
-                 f"({HARNESS_STEPS} steps, {chunks} test chunk(s))")
-        for key in ("test_loglik", "test_rmse", "elbo"):
-            if not math.isfinite(row[key]):
-                fail(f"harness: {key} = {row[key]} is not finite")
-        if not row["test_loglik"] > untrained["test_loglik"]:
-            fail(f"harness: test loglik {row['test_loglik']} is not above "
-                 f"the untrained model's {untrained['test_loglik']}")
-        if not row["synthetic_data"] or row["backend"] != "cuda":
-            fail(f"harness: ran on {row['backend']}, synthetic "
-                 f"{row['synthetic_data']}")
-        with contextlib.closing(sqlite3.connect(":memory:")) as conn:
-            conn.executescript(SCHEMA)
-            schema = conn.execute("PRAGMA table_info(regression)").fetchall()
-        with contextlib.closing(sqlite3.connect(db)) as conn:
-            table = conn.execute("PRAGMA table_info(regression)").fetchall()
-        rows = Database(db).read("kin8nm")
-        if table != schema or len(rows) != 1 or any(
-                rows[0][c] is None for c in Database._COLS):
-            fail(f"harness: the results row {rows} does not fill the schema "
-                 f"{[c[1] for c in schema]}")
+    build.reset_launches()
+    row = harness.run(args(straight))
+    counts = {k: v for k, v in _path_counts(build).items() if v}
+    if counts != want(HARNESS_STEPS):
+        fail(f"harness: launches {counts}, want {want(HARNESS_STEPS)} "
+             f"({HARNESS_STEPS} steps, {chunks} test chunk(s))")
+    for key in ("test_loglik", "test_rmse", "elbo"):
+        if not math.isfinite(row[key]):
+            fail(f"harness: {key} = {row[key]} is not finite")
+    if not row["test_loglik"] > untrained["test_loglik"]:
+        fail(f"harness: test loglik {row['test_loglik']} is not above "
+             f"the untrained model's {untrained['test_loglik']}")
+    if not row["synthetic_data"] or row["backend"] != "cuda":
+        fail(f"harness: ran on {row['backend']}, synthetic "
+             f"{row['synthetic_data']}")
+    with contextlib.closing(sqlite3.connect(":memory:")) as conn:
+        conn.executescript(SCHEMA)
+        schema = conn.execute("PRAGMA table_info(regression)").fetchall()
+    with contextlib.closing(sqlite3.connect(db)) as conn:
+        table = conn.execute("PRAGMA table_info(regression)").fetchall()
+    rows = Database(db).read("kin8nm")
+    if table != schema or len(rows) != 1 or any(
+            rows[0][c] is None for c in Database._COLS):
+        fail(f"harness: the results row {rows} does not fill the schema "
+             f"{[c[1] for c in schema]}")
 
-        os.makedirs(resumed)
-        for name in (f"step_{HARNESS_RESUME_AT}.pt", "build_args.json"):
-            shutil.copy(os.path.join(straight, name), resumed)
-        build.reset_launches()
-        row_resumed = harness.run(args(resumed, "--resume"))
-        counts_resumed = {k: v for k, v in _path_counts(build).items() if v}
-        if counts_resumed != want(HARNESS_STEPS - HARNESS_RESUME_AT):
-            fail(f"harness resume: launches {counts_resumed}, want "
-                 f"{want(HARNESS_STEPS - HARNESS_RESUME_AT)}")
-        end = f"step_{HARNESS_STEPS}.pt"
-        a = _checkpoint_leaves(os.path.join(straight, end), torch)
-        b = _checkpoint_leaves(os.path.join(resumed, end), torch)
-        if [n for n, _ in a] != [n for n, _ in b]:
-            fail("harness resume: the two checkpoints differ in structure")
-        differ = [n for (n, x), (_, y) in zip(a, b)
-                  if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
-                          else x == y)]
-        if differ:
-            fail(f"harness resume: the resumed state differs from the "
-                 f"straight run's at step {HARNESS_STEPS} in {differ}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(resumed)
+    for name in (f"step_{HARNESS_RESUME_AT}.pt", "build_args.json"):
+        shutil.copy(os.path.join(straight, name), resumed)
+    build.reset_launches()
+    row_resumed = harness.run(args(resumed, "--resume"))
+    counts_resumed = {k: v for k, v in _path_counts(build).items() if v}
+    if counts_resumed != want(HARNESS_STEPS - HARNESS_RESUME_AT):
+        fail(f"harness resume: launches {counts_resumed}, want "
+             f"{want(HARNESS_STEPS - HARNESS_RESUME_AT)}")
+    end = f"step_{HARNESS_STEPS}.pt"
+    a = _checkpoint_leaves(os.path.join(straight, end), torch)
+    b = _checkpoint_leaves(os.path.join(resumed, end), torch)
+    if [n for n, _ in a] != [n for n, _ in b]:
+        fail("harness resume: the two checkpoints differ in structure")
+    differ = [n for (n, x), (_, y) in zip(a, b)
+              if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                      else x == y)]
+    if differ:
+        fail(f"harness resume: the resumed state differs from the "
+             f"straight run's at step {HARNESS_STEPS} in {differ}")
     rec = {"run": "experiments.main.run " + " ".join(HARNESS_ARGS),
            "n_test": n_test, "test_chunks": chunks,
            "native_kmeans": native_loader.native_available(),
@@ -1493,6 +1501,300 @@ def harness_phase(torch, card: str) -> dict:
           f"{row['train_time_s']:.2f} s of training; "
           f"resumed from step {HARNESS_RESUME_AT}: state bitwise equal; "
           f"on {card}")
+    return rec
+
+
+SERVE_TABLE_BATCHES = 8   # the .npz table: 8 x B_SERVE rows
+SERVE_ARTIFACT_TOL = 1e-5  # artifact vs the plain live path, of max|value|
+
+
+def _serve_counts(build, fn) -> tuple:
+    """(result of fn(), its launches by kernel variant, nonzero only)."""
+    build.reset_launches()
+    res = fn()
+    return res, {k: v for k, v in _path_counts(build).items() if v}
+
+
+def _scorer_side(torch, serve, args, Xn, Yn, d_out=1):
+    """The CLI's live scoring redone through ``make_scorer_fn`` (the
+    function ``Scorer`` wraps): the same padded batches of the
+    standardized table (Xn, Yn), the same chunk seeds, then the CLI's
+    un-normalization. Returns the dict the CLI writes."""
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.evaluation.metrics import chunk_seed
+    from dgps_with_iwvi_torch.experiments.main import seeds
+    from dgps_with_iwvi_torch.serving import make_scorer_fn
+
+    data = get_regression_data("kin8nm", 0, data_dir=args.data_dir)
+    config, params, _ = serve._restore(args, data, torch.device("cuda"))
+    n, d_in = Xn.shape
+    bs = min(args.batch_size, n)
+    padded = np.zeros((-(-n // bs) * bs, d_in + d_out), np.float32)
+    padded[:n, :d_in], padded[:n, d_in:] = Xn, Yn
+    host = torch.from_numpy(padded)
+    fn = make_scorer_fn(params, config, args.num_predict_samples,
+                        device="cuda")
+    parts = []
+    with torch.no_grad():
+        for start in range(0, n, bs):
+            b = host[start:start + bs].cuda()
+            m, v, ld = fn(b[:, :d_in], b[:, d_in:],
+                          chunk_seed(seeds(args.seed)[2], start))
+            keep = min(bs, n - start)
+            parts.append(torch.cat([m[:keep], v[:keep], ld[:keep, None]], 1))
+    res = torch.cat(parts).cpu().numpy()
+    y_std = np.asarray(data.Y_std).reshape(1, -1)
+    y_mean = np.asarray(data.Y_mean).reshape(1, -1)
+    return {"mean": res[:, :d_out] * y_std + y_mean,
+            "var": res[:, d_out:2 * d_out] * y_std ** 2,
+            "log_density": res[:, 2 * d_out] - float(np.sum(np.log(y_std)))}
+
+
+def _artifact_reference(torch, serve, args, table, batch, seed):
+    """The artifact's function on the live path: make_scorer_fn with the
+    train statistics, serve_pallas off, under the plain versions, fed
+    ``artifact_noise(seed + i)`` for batch i of `batch` padded rows."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.ops.hopper import build
+    from dgps_with_iwvi_torch.serving import (NormalizationStats,
+                                              artifact_noise, make_scorer_fn)
+
+    data = get_regression_data("kin8nm", 0, data_dir=args.data_dir)
+    config, params, _ = serve._restore(args, data, torch.device("cuda"))
+    config = dataclasses.replace(config, serve_pallas=False)
+    fn = make_scorer_fn(params, config, args.num_predict_samples,
+                        NormalizationStats.from_dataset(data), device="cuda")
+    X, Y = (np.asarray(a, np.float32) for a in table)
+    n = X.shape[0]
+    parts = []
+    with torch.no_grad(), build.plain_versions():
+        for i, start in enumerate(range(0, n, batch)):
+            keep = min(batch, n - start)
+            xb = torch.zeros((batch, X.shape[1]), device="cuda")
+            yb = torch.zeros((batch, Y.shape[1]), device="cuda")
+            xb[:keep] = torch.from_numpy(X[start:start + keep]).cuda()
+            yb[:keep] = torch.from_numpy(Y[start:start + keep]).cuda()
+            eps = artifact_noise(seed + i, config, args.num_predict_samples,
+                                 batch, "cuda")
+            m, v, ld = fn(xb, yb, seed + i, eps=eps)
+            parts.append(torch.cat([m[:keep], v[:keep], ld[:keep, None]], 1))
+    res = torch.cat(parts).cpu().numpy()
+    return {"mean": res[:, :1], "var": res[:, 1:2], "log_density": res[:, 2]}
+
+
+def serve_phase(torch, card: str, tmp: str, harness: dict) -> dict:
+    """``experiments.serve.run`` (dgp-serve-torch) on the harness phase's
+    step-400 checkpoint (tmp/a), as a user runs it, at S=100:
+
+    (a) live scoring of the kin8nm surrogate's test split (one batch of
+    820 rows, evaluation's chunk) and of an .npz table of 8 x 8192 raw
+    rows tiled from it, at --batch_size 8192: one K1 and two K4 launches
+    per batch (the warm-up batch included) and one K1 for the restored
+    q(u)'s canonical form; each .npz equal bit for bit to the same
+    batches and seeds scored through ``make_scorer_fn`` and
+    un-normalized; the test split's mean log-density equal to the
+    harness's test loglik (the same chunk, seed and kernels: the points
+    are equal, the means differ by the order of f32 sums, 1e-6).
+
+    (b) --export of a fixed-batch (8192) and a polymorphic (--batch_size
+    0) artifact for 'cuda', then --from_export: the table through the
+    fixed one equals the live path on the plain versions with
+    serve_pallas off, fed ``artifact_noise``, to 1e-5 of max|value|
+    (bitwise expected), with no hand kernel launched; the polymorphic one
+    scores a table of 2 x 8192 + 1 rows (a 1-row last chunk) and agrees
+    with the fixed one there to 1e-5.
+
+    (c) points/s of the live path (K4) and the artifact, and of the live
+    path with --transport bfloat16 against float32: recorded, no limit.
+    """
+    from dgps_with_iwvi_torch.experiments import serve
+    from dgps_with_iwvi_torch.models import build_config, load_build_args
+    from dgps_with_iwvi_torch.ops.hopper import build
+    from dgps_with_iwvi_torch.serving import artifact_noise, load_scorer
+
+    data_dir = os.path.join(tmp, "data")
+    common = ["--dataset", "kin8nm", "--data_dir", data_dir, "--ckpt_dir",
+              os.path.join(tmp, "a"), "--num_predict_samples",
+              str(HARNESS_SAMPLES)]
+
+    def run(*flags):
+        return serve.run(serve.parse_args(common + list(flags)))
+
+    def load(name):
+        with np.load(os.path.join(tmp, name)) as z:
+            return {k: z[k] for k in z.files}
+
+    def want(batches):
+        return {"chol_inv": batches + 2, "serve_cond:sample": batches + 1,
+                "serve_cond:infer": batches + 1}
+
+    def bitwise(got, ref, what):
+        for k in ("mean", "var", "log_density"):
+            if not np.array_equal(got[k], ref[k]):
+                fail(f"serve {what}: {k} differs from the scorer-side "
+                     f"scoring (max |d| "
+                     f"{float(np.max(np.abs(got[k] - ref[k])))})")
+
+    from dgps_with_iwvi_torch.data import get_regression_data
+
+    data = get_regression_data("kin8nm", 0, data_dir=data_dir)
+    X_raw = np.asarray(data.X_test) * data.X_std + data.X_mean
+    Y_raw = np.asarray(data.Y_test) * data.Y_std + data.Y_mean
+    n_test = X_raw.shape[0]
+    reps = -(-SERVE_TABLE_BATCHES * B_SERVE // n_test)
+    n_tab = SERVE_TABLE_BATCHES * B_SERVE
+    tab = (np.tile(X_raw, (reps, 1))[:n_tab], np.tile(Y_raw, (reps, 1))[:n_tab])
+    np.savez(os.path.join(tmp, "table.npz"), X=tab[0], Y=tab[1])
+    # the CLI scores a polymorphic artifact in ServingArtifact.score's
+    # default chunks; two of them and a 1-row tail
+    from dgps_with_iwvi_torch.serving import ServingArtifact
+
+    chunk = inspect.signature(ServingArtifact.score).parameters[
+        "max_batch"].default
+    if chunk != B_SERVE:
+        fail(f"serve: the artifact's default chunk {chunk} is not the fixed "
+             f"artifact's batch {B_SERVE}; their seeds would not align")
+    n_poly = 2 * chunk + 1
+    np.savez(os.path.join(tmp, "table_poly.npz"), X=tab[0][:n_poly],
+             Y=tab[1][:n_poly])
+
+    # (a) live scoring
+    res_test, counts_test = _serve_counts(build, lambda: run(
+        "--output", os.path.join(tmp, "test.npz")))
+    if counts_test != want(1):
+        fail(f"serve test split: launches {counts_test}, want {want(1)}")
+    test = load("test.npz")
+    args_test = serve.parse_args(common)
+    bitwise(test, _scorer_side(torch, serve, args_test, data.X_test,
+                               data.Y_test), "test split")
+    ld_mean = float(np.mean(test["log_density"].astype(np.float64)))
+    ld_gap = abs(ld_mean - harness["test_loglik"])
+    if not ld_gap <= 1e-6 * max(1.0, abs(harness["test_loglik"])):
+        fail(f"serve test split: mean log-density {ld_mean} against the "
+             f"harness's test loglik {harness['test_loglik']}")
+
+    table_flags = ["--input", os.path.join(tmp, "table.npz"),
+                   "--batch_size", str(B_SERVE)]
+    res_live, counts_live = _serve_counts(build, lambda: run(
+        *table_flags, "--output", os.path.join(tmp, "live.npz")))
+    if counts_live != want(SERVE_TABLE_BATCHES):
+        fail(f"serve table: launches {counts_live}, want "
+             f"{want(SERVE_TABLE_BATCHES)}")
+    live = load("live.npz")
+    for k in ("mean", "var", "log_density"):
+        if live[k].shape[0] != n_tab or not np.all(np.isfinite(live[k])):
+            fail(f"serve table: {k} has shape {live[k].shape} or "
+                 "non-finite values")
+    bitwise(live, _scorer_side(
+        torch, serve, serve.parse_args(common + table_flags),
+        (tab[0] - data.X_mean) / data.X_std,
+        (tab[1] - data.Y_mean) / data.Y_std), "table")
+    res_bf16 = run(*table_flags, "--transport", "bfloat16", "--output",
+                   os.path.join(tmp, "live_bf16.npz"))
+    live_bf16 = load("live_bf16.npz")
+    # back in model units, where the cast rounded: one bf16 unit of each
+    y_std, y_mean = float(data.Y_std.ravel()[0]), float(data.Y_mean.ravel()[0])
+    model_units = {"mean": lambda a: (a - y_mean) / y_std,
+                   "var": lambda a: a / y_std ** 2,
+                   "log_density": lambda a: a + math.log(y_std)}
+    bf16_err = {}
+    for k, f in model_units.items():
+        a, b = f(live_bf16[k].astype(np.float64)), f(live[k].astype(
+            np.float64))
+        bf16_err[k] = float(np.max(np.abs(a - b) / (np.abs(b) + 1e-9)))
+    if not max(bf16_err.values()) <= 2.0 ** -8:
+        fail(f"serve --transport bfloat16: {bf16_err} beyond one bf16 unit")
+
+    # (b) the artifacts
+    fixed_path = os.path.join(tmp, "scorer.pt2")
+    poly_path = os.path.join(tmp, "scorer_poly.pt2")
+    t0 = time.perf_counter()
+    exp_fixed = run("--export", fixed_path, "--export_platforms", "cuda",
+                    "--batch_size", str(B_SERVE))
+    export_s = time.perf_counter() - t0
+    exp_poly = run("--export", poly_path, "--export_platforms", "cuda",
+                   "--batch_size", "0")
+    if exp_fixed["batch_size"] != B_SERVE or not exp_poly[
+            "polymorphic_batch"] or exp_fixed["platforms"] != ["cuda"]:
+        fail(f"serve --export: meta {exp_fixed} / {exp_poly}")
+    res_art, counts_art = _serve_counts(build, lambda: run(
+        "--from_export", fixed_path, "--input",
+        os.path.join(tmp, "table.npz"), "--output",
+        os.path.join(tmp, "art.npz")))
+    if counts_art:
+        fail(f"serve --from_export launched hand kernels: {counts_art}")
+    art = load("art.npz")
+    ref = _artifact_reference(torch, serve, serve.parse_args(common), tab,
+                              B_SERVE, 0)
+    art_err, art_bitwise = {}, True
+    for k in ("mean", "var", "log_density"):
+        err = float(np.max(np.abs(art[k] - ref[k])))
+        art_err[k] = err / float(np.max(np.abs(ref[k])))
+        art_bitwise &= bool(np.array_equal(art[k], ref[k]))
+        if not art_err[k] <= SERVE_ARTIFACT_TOL:
+            fail(f"serve artifact: {k} differs from the plain live path "
+                 f"by {art_err[k]} of max|value| (tol "
+                 f"{SERVE_ARTIFACT_TOL})")
+    # where the artifact's time goes: one program call at the table's
+    # batch, and the Philox draws it makes inside (artifact_noise)
+    loaded = load_scorer(fixed_path, device="cuda")
+    cfg = build_config(load_build_args(os.path.join(tmp, "a")), D_KIN8NM, 1,
+                       N_KIN8NM)
+    xb = torch.zeros((B_SERVE, D_KIN8NM), device="cuda")
+    yb = torch.zeros((B_SERVE, 1), device="cuda")
+    seed_t = torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        art_batch_ms = time_ms(torch, lambda: loaded._fn(xb, yb, seed_t), 5)
+        art_noise_ms = time_ms(torch, lambda: artifact_noise(
+            seed_t, cfg, HARNESS_SAMPLES, B_SERVE), 5)
+    del loaded
+    _, counts_poly = _serve_counts(build, lambda: run(
+        "--from_export", poly_path, "--input",
+        os.path.join(tmp, "table_poly.npz"), "--output",
+        os.path.join(tmp, "poly.npz")))
+    poly = load("poly.npz")
+    poly_err = {}
+    for k in ("mean", "var", "log_density"):
+        if poly[k].shape[0] != n_poly or not np.all(np.isfinite(poly[k])):
+            fail(f"serve polymorphic artifact: {k} has shape "
+                 f"{poly[k].shape} or non-finite values")
+        # the fixed artifact scored these rows in batches 0-2 with the
+        # same seeds; a point's noise does not depend on the batch size
+        scale = float(np.max(np.abs(art[k][:n_poly])))
+        poly_err[k] = float(np.max(np.abs(poly[k] - art[k][:n_poly]))) / scale
+        if counts_poly or not poly_err[k] <= SERVE_ARTIFACT_TOL:
+            fail(f"serve polymorphic artifact: {k} against the fixed one "
+                 f"{poly_err[k]} of max|value|, launches {counts_poly}")
+
+    rec = {"run": "experiments.serve.run " + " ".join(common),
+           "test_rows": n_test, "table_rows": n_tab, "batch": B_SERVE,
+           "samples": HARNESS_SAMPLES,
+           "test_mean_log_density": ld_mean,
+           "harness_test_loglik": harness["test_loglik"],
+           "test_loglik_gap": ld_gap,
+           "live_points_per_s": res_live["points_per_sec"],
+           "live_bf16_points_per_s": res_bf16["points_per_sec"],
+           "artifact_points_per_s": res_art["points_per_sec"],
+           "test_split_points_per_s": res_test["points_per_sec"],
+           "bf16_transport_rel_err": bf16_err,
+           "artifact_vs_plain_live": art_err,
+           "artifact_bitwise": art_bitwise,
+           "poly_vs_fixed": poly_err, "poly_rows": n_poly,
+           "export_s": export_s, "artifact_batch_ms": art_batch_ms,
+           "artifact_noise_ms": art_noise_ms,
+           "launches": counts_live, "launches_test_split": counts_test,
+           "launches_artifact": counts_art}
+    print(f"serve CLI: {n_tab} rows at S={HARNESS_SAMPLES}, batch "
+          f"{B_SERVE}: live (K4) {res_live['points_per_sec']:.0f} points/s "
+          f"(--transport bfloat16 {res_bf16['points_per_sec']:.0f}), "
+          f"artifact {res_art['points_per_sec']:.0f} ({art_batch_ms:.2f} "
+          f"ms per batch, its Philox draws {art_noise_ms:.2f}); artifact vs "
+          f"plain "
+          f"live path {max(art_err.values()):.3g} of max|value| (bitwise "
+          f"{art_bitwise}); test mean log-density {ld_mean:.6f} vs harness "
+          f"{harness['test_loglik']:.6f}; on {card}")
     return rec
 
 
@@ -1773,7 +2075,12 @@ def main() -> int:
     rec["slice"] = slice_phase(torch, model, rec, opts.profile)
     rec["pallas_serving"] = pallas_serving_phase(torch, model, opts.profile)
     rec["train"] = train_phase(torch, card, opts.profile)
-    rec["harness"] = harness_phase(torch, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        rec["harness"] = harness_phase(torch, card, tmp)
+        rec["serve_cli"] = serve_phase(torch, card, tmp, rec["harness"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
         wall = rec["slice"]["serve_s"] * 1e3 / REQUESTS
@@ -1790,7 +2097,10 @@ def main() -> int:
                  rec["train"]["use_pallas"]["natgrad final"]["launches"],
              "train_use_pallas_adam":
                  rec["train"]["use_pallas"]["Adam only"]["launches"],
-             "harness": rec["harness"]["launches"]}
+             "harness": rec["harness"]["launches"],
+             "serve_cli_test_split": rec["serve_cli"]["launches_test_split"],
+             "serve_cli": rec["serve_cli"]["launches"],
+             "serve_cli_artifact": rec["serve_cli"]["launches_artifact"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -1810,6 +2120,7 @@ def main() -> int:
     print("train: " + json.dumps(rec["train"]))
     print("epilogue_bwd checks: " + json.dumps(rec["epilogue_bwd_checks"]))
     print("harness: " + json.dumps(rec["harness"]))
+    print("serve CLI: " + json.dumps(rec["serve_cli"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

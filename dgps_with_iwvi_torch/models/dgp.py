@@ -213,12 +213,13 @@ def predict_f(params, config: DGPConfig, X: torch.Tensor,
               generator: torch.Generator | None = None,
               num_samples: int | None = None, *,
               lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
-              eps: Sequence | None = None):
-    """S propagated samples of the final-layer moments: [S, B, d_y] x2."""
+              eps: Sequence | None = None, factors: dict | None = None):
+    """S propagated samples of the final-layer moments: [S, B, d_y] x2.
+    factors: a prefactor_gp_layers result to reuse (else computed)."""
     S = num_samples or config.num_samples
     fmean, fvar, _, _ = propagate(
         params, config, X, (S,), lv_mode=lv_mode, ws_given=ws_given,
-        eps=eps, generator=generator)
+        eps=eps, generator=generator, factors=factors)
     return fmean, fvar
 
 
@@ -261,11 +262,12 @@ def predict_y_and_log_density(params, config: DGPConfig, X: torch.Tensor,
                               Y: torch.Tensor,
                               generator: torch.Generator | None = None,
                               num_samples: int | None = None, *,
-                              eps: Sequence | None = None):
+                              eps: Sequence | None = None,
+                              factors: dict | None = None):
     """The serving call: mixture moments AND the per-point mixture
     log-density from the same S prior-latent samples.
     Returns ((mix_mean, mix_var), log_density)."""
     fmean, fvar = predict_f(params, config, X, generator, num_samples,
-                            eps=eps)
+                            eps=eps, factors=factors)
     return (_mixture_moments(params, config, fmean, fvar),
             _mixture_log_density(params, config, fmean, fvar, Y))

@@ -80,19 +80,21 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
 
 
 def philox_normal(seed: torch.Tensor, n: int, d: int,
-                  device=None) -> torch.Tensor:
+                  device=None, stream: int = 0) -> torch.Tensor:
     """[n, d] f32 standard normals of K5's stream: Philox4x32-10 with key =
-    the int64 seed's (low, high) words and counter = (row, column, 0, 0);
-    the top 24 bits of the first two words make u1 (+1e-12) and u2, and
-    eps = sqrt(-2 log u1) cos(2 pi u2), the reference's Box-Muller."""
+    the int64 seed's (low, high) words and counter = (row, column,
+    stream, 0); the top 24 bits of the first two words make u1 (+1e-12)
+    and u2, and eps = sqrt(-2 log u1) cos(2 pi u2), the reference's
+    Box-Muller. K5 draws stream 0; another stream is another, independent
+    sequence under the same seed."""
     device = seed.device if device is None else device
     seed = seed.to(device=device, dtype=torch.int64).reshape(())
     rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(d, dtype=torch.int64, device=device)[None, :]
     rows, cols = torch.broadcast_tensors(rows, cols)
     zero = torch.zeros_like(rows)
-    b1, b2, _, _ = philox4x32(rows, cols, zero, zero, seed & _MASK32,
-                              (seed >> 32) & _MASK32)
+    b1, b2, _, _ = philox4x32(rows, cols, zero + stream, zero,
+                              seed & _MASK32, (seed >> 32) & _MASK32)
     u1 = (b1 >> 8).to(torch.float32) * (1.0 / 16777216.0) + 1e-12
     u2 = (b2 >> 8).to(torch.float32) * (1.0 / 16777216.0)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)

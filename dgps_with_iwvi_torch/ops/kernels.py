@@ -15,6 +15,7 @@ catastrophically in bf16) and is clipped at 0.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -76,10 +77,16 @@ def scaled_squared_distance(X: torch.Tensor, X2: torch.Tensor,
 
 
 def _use_kuf_residual(X: torch.Tensor, X2: torch.Tensor) -> bool:
-    """The reference's size rule: float32 and an output of >= 4 MB."""
-    n_out = X.shape[-2] * X2.shape[-2]
-    for s in torch.broadcast_shapes(X.shape[:-2], X2.shape[:-2]):
-        n_out *= s
+    """The reference's size rule: float32 and an output of >= 4 MB. A
+    symbolic size (a polymorphic-batch export) takes the plain path, as
+    in the reference (``kernels.py:185-201``): the rule is undecidable at
+    trace time, an export traces inference where the residual choice is
+    moot, and a decision would bake a bound on the batch into the
+    program."""
+    if not all(isinstance(s, int) for s in (*X.shape[:-1], *X2.shape[:-1])):
+        return False
+    n_out = X.shape[-2] * X2.shape[-2] * math.prod(
+        torch.broadcast_shapes(X.shape[:-2], X2.shape[:-2]))
     return X.dtype == torch.float32 and n_out * 4 >= GRAM_KRES_MIN_BYTES
 
 

@@ -79,7 +79,7 @@ def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                         f"{y.dtype}")
     if not x.is_cuda:
         return torch.matmul(x.float(), y.float())
-    with _f32_reductions():
+    with f32_reductions():
         if x.ndim == 2 and y.ndim == 2:
             return torch.mm(x, y, out_dtype=torch.float32)
         batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
@@ -90,7 +90,7 @@ def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _f32_reductions():
+def f32_reductions():
     """cuBLAS may reduce split-K partial sums of a bf16 GEMM in bf16
     unless told not to (PyTorch's default allows it); the class promises
     f32 accumulation, so it is disallowed for the call."""

@@ -91,7 +91,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: dict) -> dict:
     template `like` of the same form (its state built by
     ``make_trainer(...)[0](params)``, on the device to restore to): the
     template's tensors, Adam and generator take the saved values, and the
-    restored dict is returned."""
+    restored dict is returned. A template without 'generator' (a server,
+    which draws no training minibatches) restores the state alone."""
     path = _path(ckpt_dir, step)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     state, tmpl = saved["state"], like["state"]
@@ -105,7 +106,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: dict) -> dict:
             "model or training layout (other --configuration, --M, "
             "--natgrad or --q_diag flags). Rebuild with the original flags, "
             "or retrain without --resume.") from None
-    like["generator"].set_state(saved["generator"])
-    return {"state": TrainState(tmpl.rest, tmpl.natvars, tmpl.opt_state,
-                                state["step"]),
-            "generator": like["generator"]}
+    out = {"state": TrainState(tmpl.rest, tmpl.natvars, tmpl.opt_state,
+                               state["step"])}
+    if "generator" in like:
+        like["generator"].set_state(saved["generator"])
+        out["generator"] = like["generator"]
+    return out

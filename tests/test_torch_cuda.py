@@ -441,3 +441,84 @@ def test_conditional_functions_launch_k5(gen):
     torch.autograd.grad(s.sum(), args)
     assert build.variant_launches() == {"conditional:fused": 1,
                                         "conditional:sample": 1}
+
+
+def _artifact_model():
+    """A small LGG (d_x=3, M=16) on the card with a random q(u)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((256, 3)).astype(np.float32)
+    Y = np.sin(X[:, :1]).astype(np.float32)
+    config, params = build_model(0, BuildArgs(configuration="LGG",
+                                              mode="IW", num_inducing=16),
+                                 X, Y, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for lp in params["layers"][1:]:
+        lp["q_mu"] = 0.5 * torch.randn(lp["q_mu"].shape, generator=g,
+                                       device="cuda")
+        lp["q_sqrt"] = (0.1 * torch.tril(torch.randn(
+            lp["q_sqrt"].shape, generator=g, device="cuda"))
+            + 0.5 * torch.eye(16, device="cuda"))
+    return config, params, X, Y
+
+
+def test_cuda_artifact_equals_the_plain_live_path(gen, tmp_path):
+    """A 'cuda' artifact, saved and loaded, equals make_scorer_fn on the
+    plain versions with serve_pallas off, fed the artifact's noise, and
+    launches no hand kernel."""
+    from dgps_with_iwvi_torch import serving
+
+    config, params, X, Y = _artifact_model()
+    S, B = 10, 128
+    prog = serving.export_scorer(params, config, batch_size=B, d_in=3,
+                                 d_out=1, num_samples=S,
+                                 platforms=("cuda",))
+    path = str(tmp_path / "scorer.pt2")
+    assert serving.save_scorer(path, prog, num_samples=S,
+                               has_stats=False)["platforms"] == ["cuda"]
+    art = serving.load_scorer(path, device="cuda")
+    build.reset_launches()
+    out = art.score(X, Y, seed=4, max_batch=B)
+    assert sum(build.launches().values()) == 0
+    fn = serving.make_scorer_fn(params, dataclasses.replace(
+        config, serve_pallas=False), S, device="cuda")
+    xs, ys = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+    with torch.no_grad(), build.plain_versions():
+        for i, start in enumerate(range(0, X.shape[0], B)):
+            eps = serving.artifact_noise(4 + i, config, S, B, "cuda")
+            m, v, ld = fn(xs[start:start + B], ys[start:start + B], 4 + i,
+                          eps=eps)
+            for got, want in ((out["mean"], m), (out["var"], v),
+                              (out["log_density"], ld)):
+                want = want.cpu().numpy()
+                np.testing.assert_allclose(
+                    got[start:start + B], want, rtol=0,
+                    atol=1e-5 * np.abs(want).max())
+
+
+def test_cuda_and_cpu_programs_of_one_artifact_agree(gen, tmp_path):
+    """A ("cuda", "cpu") artifact holds one program per device in one
+    file; the two score a table alike, to the gate chip_smoke.py holds
+    every served route to against its plain versions: |a - b| <= 1e-3
+    (1 + |b|). The two devices round the same classes but sum in other
+    orders (cuBLAS against the CPU's f32 products of bf16-rounded
+    operands, two Cholesky factorizations), and an f32 value that lands
+    on the other side of a bf16 rounding boundary moves by one bf16 unit
+    (2^-8) and carries through the inner layer's sample; the first
+    reading on an H100 was 1.6e-5 of max|mean|."""
+    from dgps_with_iwvi_torch import serving
+
+    config, params, X, Y = _artifact_model()
+    progs = serving.export_scorer(params, config, batch_size="b", d_in=3,
+                                  d_out=1, num_samples=10,
+                                  platforms=("cuda", "cpu"))
+    path = str(tmp_path / "scorer.pt2")
+    meta = serving.save_scorer(path, progs, num_samples=10, has_stats=False)
+    assert meta["platforms"] == ["cuda", "cpu"]
+    assert meta["polymorphic_batch"] and meta["batch_size"] == 0
+    on_card = serving.load_scorer(path, device="cuda")
+    on_cpu = serving.load_scorer(path, device="cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    a = on_card.score(X[:97], Y[:97], seed=2, max_batch=32)
+    b = on_cpu.score(X[:97], Y[:97], seed=2, max_batch=32)
+    for k in ("mean", "var", "log_density"):
+        assert np.max(np.abs(a[k] - b[k]) / (1.0 + np.abs(b[k]))) <= 1e-3

@@ -25,7 +25,7 @@ from dgps_with_iwvi_tpu.training.monitor import \
     hyperparameter_scalars as jhyperparameter_scalars
 from dgps_with_iwvi_torch import params as tparams
 from dgps_with_iwvi_torch.data import native_loader as tnative
-from dgps_with_iwvi_torch.experiments import main, run_suite
+from dgps_with_iwvi_torch.experiments import main, run_suite, serve
 from dgps_with_iwvi_torch.models import (BuildArgs, build_config, build_model,
                                          load_build_args, save_build_args)
 from dgps_with_iwvi_torch.models.builder import kmeans_centers
@@ -217,6 +217,22 @@ def test_cli_runs_on_cuda_by_default(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "r.db")
     with pytest.raises(ValueError, match="float64"):
         main.run(main.parse_args(["--dtype", "float64"]))
+
+
+def test_serve_cli_runs_on_cuda_by_default(tmp_path, monkeypatch):
+    """dgp-serve-torch without --device asks for the card, from a
+    checkpoint and from an artifact, and raises where there is none,
+    before it writes anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "pred.npz")
+    for source in (["--ckpt_dir", str(tmp_path / "ck")],
+                   ["--from_export", str(tmp_path / "scorer.pt2")]):
+        args = serve.parse_args(["--dataset", "yacht", "--output", out,
+                                 *source])
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.run(args)
+    assert not os.path.exists(out)
 
 
 def test_suite_runs_the_grid_and_skips_existing_rows(tmp_path, capsys):

@@ -2,7 +2,8 @@
 ports what they refuse: item 7 (breadth) for other kernel kinds, other
 likelihoods, the non-whitened conditional and KL, hyperparameter priors,
 and the harness's flags and evaluation of those; item 8 (parallel) for the
-sharded trainer, ``--shard`` and sharded evaluation. The items are written
+sharded trainer, ``--shard`` and sharded evaluation, and the serving CLI's
+``--shard`` over more than one card. The items are written
 out here, so that a rewrite of ROADMAP.md cannot break this test. The
 harness refuses a flag before any work: the runs below name a dataset that
 does not exist, which would raise FileNotFoundError had loading begun."""
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from dgps_with_iwvi_torch.evaluation import evaluate
-from dgps_with_iwvi_torch.experiments import main
+from dgps_with_iwvi_torch.experiments import main, serve
 from dgps_with_iwvi_torch.models import BuildArgs, build_config
 from dgps_with_iwvi_torch.models import dgp, layers
 from dgps_with_iwvi_torch.ops import conditionals, kernels, likelihoods
@@ -100,3 +101,15 @@ def test_not_ported_errors_name_their_queue_item(raise_site, item):
     with pytest.raises(NotImplementedError,
                        match=rf"\(ROADMAP\s+queue {item}\)"):
         raise_site()
+
+
+def test_serve_shard_over_several_cards_names_item_8(monkeypatch):
+    """With two visible cards, dgp-serve-torch --shard refuses before any
+    work (no checkpoint or dataset exists here) and names item 8."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = serve.parse_args(["--dataset", "no_such_dataset", "--data_dir",
+                             "no_such_dir", "--ckpt_dir", "no_such_ckpt",
+                             "--output", "no_such.npz", "--shard"])
+    with pytest.raises(NotImplementedError,
+                       match=r"\(ROADMAP\s+queue 8\)"):
+        serve.run(args)

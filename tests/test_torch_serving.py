@@ -201,6 +201,8 @@ def test_port_imports_no_jax():
             "p.__name__ + '.')];"
             "[importlib.import_module(m) for m in mods];"
             "assert len(mods) > 20, mods;"
+            "assert {'dgps_with_iwvi_torch.serving', "
+            "'dgps_with_iwvi_torch.experiments.serve'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'dgps_with_iwvi_tpu'))];"
             "print(bad); sys.exit(1 if bad else 0)")
