@@ -67,7 +67,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``--from_export``): no hand kernel launched, the fixed one within 1e-5
    of max|value| of the live path on the plain versions fed the
    artifact's noise, the polymorphic one scoring a 1-row last chunk; the
-   points/s of the live path, the artifact and ``--transport bfloat16``.
+   points/s of the live path, the artifact and ``--transport bfloat16``;
+8. families: ``experiments.main.run`` on the kin8nm surrogate as in phase
+   6 (300 steps) with (a) ``--kernel matern52+linear`` (K1 on its Kuu,
+   and on rank-deficient linear, polynomial and constant grams up the
+   jitter ladder, at the plain version's level; K1, K2 and K3 twice per
+   step, evaluation on K1 and K2, no K4; one step at a random q(u)
+   against the plain versions; test NLL above the untrained model's) and
+   (b) ``--likelihood multiclass --num_classes 3`` on the class surrogate
+   (K2 and K3 at a final layer of D=3 and K4 'infer' at D=3 held to their
+   plain versions in phase 3; launches as phase 6's; one step against
+   the plain versions, its gradients held to the same step in float64;
+   test accuracy above 0.40 and test NLL above the untrained model's),
+   then ``experiments.serve.run`` on (b)'s checkpoint: [n, 3] class
+   probabilities, one K1 and two K4 per batch, the test split's mean
+   log-density equal to (b)'s test loglik.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path), then the card's name and power limit, then
@@ -447,6 +461,7 @@ EPI_TRAIN_CASES = [
     # (label, D, cov): the training step's two K2 launches
     ("training inner layer: root D=8, mean+sumsq", 8, False),
     ("training final layer (natgrad): cov D=1, mean+sumsq", 1, True),
+    ("multiclass final layer (natgrad): cov D=3, mean+sumsq", 3, True),
 ]
 
 
@@ -516,6 +531,7 @@ BWD_FORMS = [
     # (label, form, D, cov)
     ("epi, root D=8 (inner layer)", "epi", 8, False),
     ("epi, cov D=1 (natgrad final layer)", "epi", 1, True),
+    ("epi, cov D=3 (multiclass natgrad final layer)", "epi", 3, True),
     ("ps, root D=8", "ps", 8, False),
     ("qvar only, root D=8", "qvar", 8, False),
 ]
@@ -657,6 +673,8 @@ FUSED_CASES = [
      D_X + 1, M, D_X, None),
     ("harness test set final layer", HARNESS_TEST_ROWS * HARNESS_SAMPLES,
      D_X, M, 1, None),
+    ("multiclass test set final layer, D=3",
+     HARNESS_TEST_ROWS * HARNESS_SAMPLES, D_X, M, 3, "multiclass"),
     ("ragged N=1000", 1000, D_X + 1, M, D_X, None),
     ("M=100", 1000, D_X + 1, 100, D_X, None),
     ("M=200", 1000, D_X + 1, 200, D_X, None),
@@ -766,6 +784,15 @@ def fused_phase(torch, hopper, gen) -> tuple:
                                                                with_eps)
                 cases[name].insert(0, case)
             else:
+                if layer == "multiclass" and not with_eps:
+                    # the new shape of the families phase, timed as well
+                    case["ms"] = time_ms(torch, lambda: k4_call(False), 10)
+                    case["device_ms"] = device_ms(torch,
+                                                  lambda: k4_call(False))
+                    case["plain_ms"] = time_ms(
+                        torch, lambda: k4_call(False, True), 2, 1)
+                    case["bound_ms"], case["bound_by"] = _k4_bound(
+                        n, d_in, m, d, False)
                 cases[name].append(case)
         for name, s in (("conditional:fused", None),
                         ("conditional:sample", seed)):
@@ -886,6 +913,22 @@ def profile_serve(torch, scorer, Xs, Ys, requests: int = 2) -> dict:
                 {"span": k[:200], "ms": ms} for ms, _, k in spans]}
 
 
+def random_q(torch, params):
+    """A random q(u) from seed 1 on the GP layers 1 and 2 of an LGG
+    model, in place: q_mu ~ 0.5 N(0, 1) and q_sqrt = 0.02 tril(N(0, 1))
+    + (0.3, 0.5) I. At q_sqrt = I the whitened prior and q-variance terms
+    cancel exactly, and the hyperparameter gradients are rounding noise
+    in either path."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for i, scale in ((1, 0.3), (2, 0.5)):
+        lp = params["layers"][i]
+        lp["q_mu"] = 0.5 * torch.randn(lp["q_mu"].shape, generator=gen,
+                                       device="cuda")
+        lp["q_sqrt"] = (0.02 * torch.tril(torch.randn(
+            lp["q_sqrt"].shape, generator=gen, device="cuda"))
+            + scale * torch.eye(M, device="cuda"))
+
+
 def served_model(torch):
     """(X, Y, config, params, build_s): LGG built from seed 0 on bench.py's
     synthetic data, with a random q(u) from seed 1, on the card."""
@@ -897,14 +940,7 @@ def served_model(torch):
     t0 = time.perf_counter()
     config, params = build_model(0, args, X[:2048], Y[:2048], device="cuda")
     # random q(u) from the seed, so the mean and every variance term count
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for i, scale in ((1, 0.3), (2, 0.5)):
-        lp = params["layers"][i]
-        lp["q_mu"] = 0.5 * torch.randn(lp["q_mu"].shape, generator=gen,
-                                       device="cuda")
-        lp["q_sqrt"] = (0.02 * torch.tril(torch.randn(
-            lp["q_sqrt"].shape, generator=gen, device="cuda"))
-            + scale * torch.eye(M, device="cuda"))
+    random_q(torch, params)
     torch.cuda.synchronize()
     return X, Y, config, params, time.perf_counter() - t0
 
@@ -1117,11 +1153,19 @@ def _path_counts(build) -> dict:
 
 
 def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
-                    gen_seed=None):
+                    gen_seed=None, exact_params=None):
     """One step's loss and every gradient through the kernels and through
     the plain versions on the card, same state, rows and noise: the noise
     `eps`, or (gen_seed) draws from a generator seeded alike for both, so
-    that K5's in-kernel stream and its plain version draw the same."""
+    that K5's in-kernel stream and its plain version draw the same.
+
+    With `exact_params` (the parameters `state` was made from), the same
+    step also runs in float64 on the plain versions, and each gradient is
+    held to that exact one instead: the kernels' error within 2e-2 of the
+    leaf's largest exact value, or within twice the float32 plain
+    versions' own error. A leaf whose exact gradient sits below float32's
+    rounding of the terms that cancel into it is missed by both paths;
+    kernels against plain versions cannot hold it at any limit."""
     from dgps_with_iwvi_torch.ops.hopper import build
 
     def tensors(tree, path):
@@ -1147,6 +1191,30 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
     by_leaf = {name: max_err(a, b) / max(float(b.abs().max()), 1e-30)
                for (name, a), (_, b) in zip(g_k, g_p)}
     grad_rel = max(by_leaf.values())
+    exact = None
+    if exact_params is not None:
+        def f64(tree):
+            if isinstance(tree, dict):
+                return {k: f64(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(f64(v) for v in tree)
+            return tree.double() if tree.is_floating_point() else tree
+
+        state64 = train.make_trainer(config, tc)[0](f64(exact_params))
+        with build.plain_versions():
+            _, g64n, g64r = train.loss_and_grads(
+                config, tc, state64, X.double(), Y.double(), None, idx=idx,
+                eps=[None if e is None else e.double() for e in eps])
+        g_64 = tensors(g64n, "natvars") + tensors(g64r, "rest")
+        exact = {}
+        for (name, a), (_, b), (_, c) in zip(g_k, g_p, g_64):
+            scale = max(float(c.abs().max()), 1e-300)
+            exact[name] = {"kernels": max_err(a, c) / scale,
+                           "plain": max_err(b, c) / scale,
+                           "max_abs_float64": scale}
+        # in units of the 2e-2 limit below
+        grad_rel = 2e-2 * max(e["kernels"] / max(2e-2, 2.0 * e["plain"])
+                              for e in exact.values())
     # same rounding classes on both paths; the f32 sums run in another
     # order, and a bf16 rounding boundary crossed by dt or ga moves one
     # product term by a bf16 unit: the bf16 class of the reference's
@@ -1154,10 +1222,17 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
     if not (loss_rel <= 1e-4 and grad_rel <= 2e-2):
         fail(f"train step: kernels vs plain versions differ: loss {loss_rel} "
              f"(tol 1e-4 rel), gradients {grad_rel} (tol 2e-2 of max|g|): "
-             + json.dumps(by_leaf))
-    return {"loss": float(loss_k), "loss_rel_err": loss_rel,
-            "max_grad_err_over_max_grad": grad_rel, "by_leaf": by_leaf,
-            "tol": "loss 1e-4 rel; each gradient 2e-2 x max|plain|"}
+             + json.dumps(exact or by_leaf))
+    rec = {"loss": float(loss_k), "loss_rel_err": loss_rel,
+           "max_grad_err_over_max_grad": max(by_leaf.values()),
+           "by_leaf": by_leaf,
+           "tol": "loss 1e-4 rel; each gradient 2e-2 x max|plain|"}
+    if exact is not None:
+        rec["tol"] = ("loss 1e-4 rel; each gradient against float64: "
+                      "max(2e-2, 2 x the plain versions' error) x "
+                      "max|exact|")
+        rec["vs_float64"] = exact
+    return rec
 
 
 def _steps_per_s(torch, step, state, X, Y, gen, steps):
@@ -1221,17 +1296,8 @@ def train_phase(torch, card: str, profile: bool) -> dict:
     args = BuildArgs(configuration="LGG", mode="IW", num_inducing=M,
                      num_iw_samples=L_TRAIN)
     config, params = build_model(0, args, Xn, Yn, device="cuda")
-    # a q(u) away from its initialization, as after some training: at
-    # q_sqrt = I the whitened prior and q-variance terms cancel exactly,
-    # and the hyperparameter gradients are rounding noise in either path
-    g0 = torch.Generator(device="cuda").manual_seed(1)
-    for i, scale in ((1, 0.3), (2, 0.5)):
-        lp = params["layers"][i]
-        lp["q_mu"] = 0.5 * torch.randn(lp["q_mu"].shape, generator=g0,
-                                       device="cuda")
-        lp["q_sqrt"] = (0.02 * torch.tril(torch.randn(
-            lp["q_sqrt"].shape, generator=g0, device="cuda"))
-            + scale * torch.eye(M, device="cuda"))
+    # a q(u) away from its initialization, as after some training
+    random_q(torch, params)
     X, Y = torch.from_numpy(Xn).cuda(), torch.from_numpy(Yn).cuda()
     tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
                            minibatch_size=B_TRAIN)
@@ -1798,6 +1864,192 @@ def serve_phase(torch, card: str, tmp: str, harness: dict) -> dict:
     return rec
 
 
+FAMILY_STEPS = 300
+FAMILY_ARGS = ["--dataset", "kin8nm", "--configuration", "LGG", "--mode",
+               "IW", "--K", "20", "--M", "128", "--minibatch_size", "512",
+               "--natgrad", "final", "--iterations", str(FAMILY_STEPS),
+               "--steps_per_call", "100", "--num_predict_samples",
+               str(HARNESS_SAMPLES), "--print_every", "100"]
+FAMILY_RUNS = [
+    # (label, flags): (a) a composite non-RBF kernel on the K2 route,
+    # (b) a final layer of C=3 outputs on the default route (K4 at
+    # evaluation and serving)
+    ("regression", ["--kernel", "matern52+linear"]),
+    ("multiclass", ["--likelihood", "multiclass", "--num_classes", "3"]),
+]
+RANK_DEFICIENT_KINDS = ("linear", "polynomial", "constant")
+
+
+def _family_kuu_checks(torch, exp) -> dict:
+    """K1 against its plain version on the model's stacked Kuu (the
+    matern52+linear grams of both GP layers) over the model's ladder, and
+    on the rank-deficient grams of RANK_DEFICIENT_KINDS at the inner
+    layer's Z (rank <= 9 for linear, 1 for constant at M=128) over a
+    6-level ladder from 1e-6, where each must find a usable level, the
+    plain version's."""
+    from dgps_with_iwvi_torch.ops import hopper, kernels, linalg
+
+    cfg = exp.config
+    ladder = linalg._jitter_ladder(cfg.jitter, cfg.jitter_tries,
+                                   torch.float32, "cuda")
+    out = {"model_kuu": _chol_case(torch, hopper.chol, linalg,
+                                   served_kuu(torch, cfg, exp.params),
+                                   ladder)}
+    Z = exp.params["layers"][1]["Z"]
+    ladder6 = linalg._jitter_ladder(1e-6, 6, torch.float32, "cuda")
+    for kind in RANK_DEFICIENT_KINDS:
+        Kd = kernels.K(kernels.kernel_params(kind, Z.shape[1],
+                                             device=Z.device), Z, Z,
+                       kind=kind)[None]
+        case = _chol_case(torch, hopper.chol, linalg, Kd, ladder6)
+        L_all = hopper.chol.chol_inv(Kd, ladder6)[0]
+        if not bool(linalg._chol_ok(L_all).any()):
+            fail(f"families: no level of the ladder factors the {kind} Kuu")
+        out[kind] = case
+    return out
+
+
+def families_phase(torch, card: str, tmp: str) -> dict:
+    """The kernel and likelihood families through ``experiments.main.run``
+    on the kin8nm surrogate, as phase 6 runs it (LGG IW K=20 M=128 B=512,
+    natgrad final, S=100 at evaluation), FAMILY_STEPS steps each:
+
+    (a) ``--kernel matern52+linear``: K1 on the model's Kuu and on
+    rank-deficient grams (``_family_kuu_checks``); one step at a random
+    q(u) against the plain versions on the card (loss 1e-4, gradients
+    2e-2 of max); K1, K2 and K3 twice per step, and evaluation and the
+    final ELBO on K1 and K2 (a non-RBF kernel takes no K4); test NLL above
+    the untrained model's.
+
+    (b) ``--likelihood multiclass --num_classes 3`` on the class
+    surrogate: the same step, its gradients held to the float64 step
+    (``_grad_agreement``); launches as phase 6's (K2 and K3 at
+    the final layer's D=3, K4 'infer' at D=3 in evaluation); test
+    accuracy above 0.40 (chance 1/3) and test NLL above the untrained
+    model's. Then ``experiments.serve.run`` on its step-300 checkpoint:
+    the test split as [n, 3] class probabilities, one K1 and two K4 per
+    batch (the warm-up included) and one K1 for the restored q(u), the
+    mean log-density within 1e-6 of (b)'s test loglik."""
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.experiments import main as harness
+    from dgps_with_iwvi_torch.experiments import serve
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    data_dir = os.path.join(tmp, "data")
+    rec = {}
+    for label, flags in FAMILY_RUNS:
+        multiclass = label == "multiclass"
+        ckpt = os.path.join(tmp, f"family_{label}")
+        args = harness.parse_args(FAMILY_ARGS + flags + [
+            "--data_dir", data_dir, "--results_db",
+            os.path.join(tmp, "families.db"), "--ckpt_dir", ckpt,
+            "--ckpt_every", str(FAMILY_STEPS)])
+        exp = harness.setup(args)
+        n_test = exp.data.X_test.shape[0]
+        chunks = -(-n_test // EVAL_BATCH)
+        untrained = harness.evaluate_model(args, exp, exp.params)
+        out = {"run": "experiments.main.run " + " ".join(FAMILY_ARGS + flags),
+               "n_test": n_test}
+        if not multiclass:
+            out["k1"] = _family_kuu_checks(torch, exp)
+
+        # one step at a random q(u), kernels against the plain versions
+        params = dict(exp.params, layers=[dict(lp) for lp in
+                                          exp.params["layers"]])
+        random_q(torch, params)
+        tc = train.TrainConfig(lr=args.lr, gamma=args.gamma,
+                               natgrad=args.natgrad,
+                               minibatch_size=args.minibatch_size)
+        state = train.make_trainer(exp.config, tc)[0](params)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        B = args.minibatch_size
+        idx = torch.randint(0, exp.X.shape[0], (B,), generator=g,
+                            device="cuda")
+        eps = [torch.randn((L_TRAIN, B, 1), generator=g, device="cuda"),
+               torch.randn((L_TRAIN, B, exp.config.layers[1].d_out),
+                           generator=g, device="cuda"), None]
+        # (b): at this q(u) the final layer's kernel-variance gradient
+        # sits below float32's rounding (the record's vs_float64 shows
+        # it), so the step is held to the same step in float64
+        out["vs_plain_on_card"] = _grad_agreement(
+            torch, train, exp.config, tc, state, exp.X, exp.Y, idx, eps,
+            exact_params=params if multiclass else None)
+        del exp, params, state
+
+        S = FAMILY_STEPS
+        want = {"chol_inv": 2 * S + 1 + chunks + 1,
+                "epilogue:epi": 2 * S, "epilogue_bwd:epi": 2 * S}
+        if multiclass:
+            want.update({"serve_cond:sample": chunks + 1,
+                         "serve_cond:infer": chunks + 1})
+        else:  # evaluation's chunks and the final ELBO: K2 at both layers
+            want["epilogue:epi"] += 2 * (chunks + 1)
+        build.reset_launches()
+        row = harness.run(args)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != want:
+            fail(f"families ({label}): launches {counts}, want {want} "
+                 f"({S} steps, {chunks} test chunk(s))")
+        if not all(math.isfinite(row[k]) for k in ("test_loglik", "elbo")):
+            fail(f"families ({label}): test loglik {row['test_loglik']} or "
+                 f"ELBO {row['elbo']} is not finite")
+        if not row["test_loglik"] > untrained["test_loglik"]:
+            fail(f"families ({label}): test loglik {row['test_loglik']} is "
+                 f"not above the untrained model's "
+                 f"{untrained['test_loglik']}")
+        if multiclass and not row["test_accuracy"] > 0.40:
+            fail(f"families ({label}): test accuracy {row['test_accuracy']}"
+                 " is not above 0.40")
+        out.update({
+            "test_loglik": row["test_loglik"],
+            "untrained_test_loglik": untrained["test_loglik"],
+            "test_rmse": row["test_rmse"],
+            "test_accuracy": row.get("test_accuracy"),
+            "untrained_test_accuracy": untrained.get("test_accuracy"),
+            "elbo": row["elbo"], "steps_per_s": row["steps_per_sec"],
+            "train_time_s": row["train_time_s"], "launches": counts})
+        acc = (f", test accuracy {row['test_accuracy']:.4f} (untrained "
+               f"{untrained['test_accuracy']:.4f})" if multiclass else "")
+        print(f"families {label} ({' '.join(flags)}): {S} steps at "
+              f"{row['steps_per_sec']:.1f} steps/s, test_loglik "
+              f"{row['test_loglik']:.4f} (untrained "
+              f"{untrained['test_loglik']:.4f}){acc}; launches "
+              f"{json.dumps(counts)}; on {card}")
+        rec[label] = out
+
+    # the multiclass checkpoint through the serve CLI
+    pred = os.path.join(tmp, "family_multiclass.npz")
+    res, counts = _serve_counts(build, lambda: serve.run(serve.parse_args([
+        "--dataset", "kin8nm", "--data_dir", data_dir, "--ckpt_dir",
+        os.path.join(tmp, "family_multiclass"), "--num_predict_samples",
+        str(HARNESS_SAMPLES), "--output", pred])))
+    want = {"chol_inv": 3, "serve_cond:sample": 2, "serve_cond:infer": 2}
+    if counts != want:
+        fail(f"families serve: launches {counts}, want {want}")
+    with np.load(pred) as z:
+        mean, ld = z["mean"], z["log_density"]
+    n_test = rec["multiclass"]["n_test"]
+    if mean.shape != (n_test, 3) or not np.all(np.isfinite(mean)):
+        fail(f"families serve: mean of shape {mean.shape}, want "
+             f"({n_test}, 3), finite")
+    ld_mean = float(np.mean(ld.astype(np.float64)))
+    ref = rec["multiclass"]["test_loglik"]
+    gap = abs(ld_mean - ref)
+    if not gap <= 1e-6 * max(1.0, abs(ref)):
+        fail(f"families serve: mean log-density {ld_mean} against the "
+             f"run's test loglik {ref}")
+    rec["serve"] = {"test_mean_log_density": ld_mean, "test_loglik_gap": gap,
+                    "mean_row_sum_max_dev": float(np.max(np.abs(
+                        mean.sum(1) - 1.0))),
+                    "points_per_s": res["points_per_sec"],
+                    "launches": counts}
+    print(f"families serve: the multiclass checkpoint's test split as "
+          f"[{n_test}, 3] class probabilities, mean log-density "
+          f"{ld_mean:.6f} vs the run's {ref:.6f}; launches "
+          f"{json.dumps(counts)}; on {card}")
+    return rec
+
+
 AB_ORDER = ("parent", "change", "change", "parent")
 AB_COND_CASES = [
     # (label, N, d_in, M, D, kernel, sample, residuals, iterations)
@@ -2079,6 +2331,10 @@ def main() -> int:
     try:
         rec["harness"] = harness_phase(torch, card, tmp)
         rec["serve_cli"] = serve_phase(torch, card, tmp, rec["harness"])
+        t0 = time.perf_counter()
+        rec["families"] = families_phase(torch, card, tmp)
+        rec["families"]["phase_s"] = time.perf_counter() - t0
+        print(f"families: phase 8 took {rec['families']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -2100,7 +2356,12 @@ def main() -> int:
              "harness": rec["harness"]["launches"],
              "serve_cli_test_split": rec["serve_cli"]["launches_test_split"],
              "serve_cli": rec["serve_cli"]["launches"],
-             "serve_cli_artifact": rec["serve_cli"]["launches_artifact"]}
+             "serve_cli_artifact": rec["serve_cli"]["launches_artifact"],
+             "families_regression":
+                 rec["families"]["regression"]["launches"],
+             "families_multiclass":
+                 rec["families"]["multiclass"]["launches"],
+             "families_serve": rec["families"]["serve"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -2121,6 +2382,7 @@ def main() -> int:
     print("epilogue_bwd checks: " + json.dumps(rec["epilogue_bwd_checks"]))
     print("harness: " + json.dumps(rec["harness"]))
     print("serve CLI: " + json.dumps(rec["serve_cli"]))
+    print("families: " + json.dumps(rec["families"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

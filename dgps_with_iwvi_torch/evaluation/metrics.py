@@ -1,11 +1,13 @@
-"""Test metrics: mixture test log-likelihood and RMSE in original y units
-(port of dgps_with_iwvi_tpu/evaluation/metrics.py:68-199).
+"""Test metrics: mixture test log-likelihood, RMSE and, for the label
+families, accuracy (port of dgps_with_iwvi_tpu/evaluation/metrics.py:68-199).
 
 Each test point is scored by the equally weighted mixture of S
-prior-latent samples, p(y*) ~= (1/S) sum_s N(y* | m_s, v_s + s2), through
-the serving call ``models.predict_y_and_log_density``; the log-likelihood
+prior-latent samples, p(y*) ~= (1/S) sum_s p(y* | m_s, v_s), through the
+serving call ``models.predict_y_and_log_density``. The gaussian and
+student_t families train on standardized labels: the log-likelihood
 shifts by -sum log(sigma_y) and the RMSE scales by sigma_y, so both are in
-original units.
+original units. The other families train on labels as they are, so
+their model units are original units.
 
 The test set goes through in chunks of ``batch_size`` rows, the last one
 padded to that size and masked, so every chunk runs at one shape. A chunk
@@ -50,18 +52,18 @@ def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
              likelihood: str = "gaussian", mesh=None,
              device="cuda") -> dict:
     """-> dict(test_loglik, test_rmse, test_loglik_normalized,
-    test_rmse_normalized).
+    test_rmse_normalized), plus test_accuracy for multiclass, softmax,
+    bernoulli and ordinal and test_loglik_task_<t> per task for
+    switched_gaussian.
 
     test_loglik is the mean per-point mixture log-density in ORIGINAL
     units; test_rmse the root-mean-square error of the mixture mean, in
-    original units. X_test [n, d_x] and Y_test [n, d_y] are numpy arrays
-    or tensors in the model's dtype (standardized); y_std the train split's
-    label scale. Runs on `device` (the card unless the caller asks for the
-    CPU); params are moved there."""
-    if likelihood != "gaussian":
-        raise NotImplementedError(
-            f"evaluation under the {likelihood!r} likelihood is not ported "
-            "yet (ROADMAP queue 7); the port has 'gaussian' only")
+    original units (NaN for multiclass and softmax, whose mean is the
+    class probabilities). X_test [n, d_x] and Y_test [n, d_y] are numpy
+    arrays or tensors in the model's dtype (standardized for gaussian and
+    student_t); y_std the train split's label scale. Runs on `device`
+    (the card unless the caller asks for the CPU); params are moved
+    there."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded evaluation is not ported yet (ROADMAP queue 8)")
@@ -87,8 +89,41 @@ def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
     lds, means = host[:, 0], host[:, 1:]
     ys = np.asarray(torch.as_tensor(Y_test).cpu())   # [n, d_y]
     ld_norm = float(lds.mean())
+    if likelihood in ("multiclass", "softmax"):
+        # means: mixture class probabilities [n, C]; ys: labels [n, 1]
+        return {"test_loglik": ld_norm, "test_rmse": float("nan"),
+                "test_loglik_normalized": ld_norm,
+                "test_rmse_normalized": float("nan"),
+                "test_accuracy": float(np.mean(
+                    np.argmax(means, axis=-1) == ys[:, 0]))}
+    if likelihood == "switched_gaussian":
+        # ys = [targets..., task index]; pooled and per-task metrics, no
+        # un-normalization
+        tasks = np.round(ys[:, -1]).astype(int)
+        rmse = float(np.sqrt(np.mean(np.sum((means - ys[:, :-1]) ** 2,
+                                            -1))))
+        out = {"test_loglik": ld_norm, "test_rmse": rmse,
+               "test_loglik_normalized": ld_norm,
+               "test_rmse_normalized": rmse}
+        for t in np.unique(tasks):
+            out[f"test_loglik_task_{t}"] = float(lds[tasks == t].mean())
+        return out
     errs = means - ys                                  # in model units
     rmse_norm = float(np.sqrt(np.mean(np.sum(errs ** 2, -1))))
+    if likelihood not in ("gaussian", "student_t"):
+        # labels, counts, positives: model units are original units
+        out = {"test_loglik": ld_norm, "test_rmse": rmse_norm,
+               "test_loglik_normalized": ld_norm,
+               "test_rmse_normalized": rmse_norm}
+        if likelihood == "bernoulli":
+            # means = mixture p(y=1): |p - y| < 0.5 is a correct label
+            out["test_accuracy"] = float(
+                np.mean(np.all(np.abs(errs) < 0.5, axis=-1)))
+        elif likelihood == "ordinal":
+            # the nearest label to the predictive mean
+            out["test_accuracy"] = float(
+                np.mean(np.round(means[:, 0]) == ys[:, 0]))
+        return out
     y_std = np.asarray(y_std).reshape(1, -1)
     rmse_orig = float(np.sqrt(np.mean(np.sum((errs * y_std) ** 2, -1))))
     log_sigma = float(np.sum(np.log(y_std)))           # per-dim sum

@@ -1,16 +1,17 @@
 #!/usr/bin/env python
-"""UCI regression experiment runner
-(port of dgps_with_iwvi_tpu/experiments/main.py).
+"""UCI experiment runner (port of dgps_with_iwvi_tpu/experiments/main.py).
 
 The reference's flag surface (dataset, split, configuration string of G/L
 tokens, mode VI/IW, M inducing points, K importance samples, minibatch
-size, iterations, Adam lr, natgrad gamma), plus ``--device``, wired to the
+size, iterations, Adam lr, natgrad gamma, the kernel and likelihood
+families, the gram's precision switches), plus ``--device``, wired to the
 port: data -> build_model (k-means Z init) -> natgrad + Adam training with
-the monitor and checkpoints -> mixture NLL / RMSE evaluation -> one row of
-the bayesian_benchmarks sqlite schema. Runs on the card unless
-``--device cpu`` is given. Flags of the reference that the port cannot
-serve yet raise NotImplementedError, naming their ROADMAP item, before any
-work.
+the monitor and checkpoints -> mixture NLL / RMSE (and accuracy)
+evaluation -> one row of the bayesian_benchmarks sqlite schema. Runs on
+the card unless ``--device cpu`` is given. Flags of the reference that
+the port cannot serve yet (``--prior``, ``--feature multiscale``,
+``--no_white``, ``--shard``) raise NotImplementedError, naming their
+ROADMAP item, before any work.
 
 Example (the paper's flagship configuration):
     python -m dgps_with_iwvi_torch.experiments.main --dataset kin8nm \\
@@ -29,11 +30,14 @@ import time
 import numpy as np
 import torch
 
-from dgps_with_iwvi_torch.data import Dataset, get_regression_data
+from dgps_with_iwvi_torch.data import (Dataset, get_classification_data,
+                                       get_multiclass_data,
+                                       get_regression_data)
 from dgps_with_iwvi_torch.device import resolve_device
 from dgps_with_iwvi_torch.evaluation import Database, evaluate
 from dgps_with_iwvi_torch.models import (BuildArgs, DGPConfig, build_model,
                                          elbo, save_build_args)
+from dgps_with_iwvi_torch.ops import kernels
 from dgps_with_iwvi_torch.training import TrainConfig, fit, make_trainer
 from dgps_with_iwvi_torch.training.checkpoint import (latest_step,
                                                       restore_checkpoint,
@@ -66,13 +70,19 @@ def parse_args(argv=None):
     p.add_argument("--d_w", type=int, default=1,
                    help="latent dim per LV layer")
     p.add_argument("--kernel", default="rbf",
-                   help="kernel kind; the port has 'rbf' only (the family "
-                        "is ROADMAP queue 7)")
+                   help="leaf kinds rbf|matern12|matern32|matern52|rq|"
+                        "cosine|arccosine[0|2]|linear|polynomial|periodic|"
+                        "white|constant|coregion<C>x<R>, composable with "
+                        "'+'/'*' (e.g. 'rbf+linear', 'rbf*periodic'); "
+                        "per-leaf active dims as a '[...]' suffix (e.g. "
+                        "'rbf[0:3]*periodic[3]', 'linear[0,2,5]')")
     p.add_argument("--likelihood", default="gaussian",
                    choices=["gaussian", "bernoulli", "student_t",
                             "multiclass", "softmax", "ordinal"],
-                   help="observation model; the port has 'gaussian' only "
-                        "(the others are ROADMAP queue 7)")
+                   help="observation model; gaussian and student_t use the "
+                        "standardized regression loader, bernoulli the "
+                        "binary-label loader, multiclass, softmax and "
+                        "ordinal the quantile-binned class loader")
     p.add_argument("--num_classes", type=int, default=3,
                    help="multiclass/ordinal: number of classes C")
     p.add_argument("--dtype", default="float32",
@@ -95,10 +105,13 @@ def parse_args(argv=None):
                         "dots ('auto': the primal's)")
     p.add_argument("--gram_fwd_precision", default="highest",
                    choices=["highest", "high"],
-                   help="precision of the gram's cross term; the port has "
-                        "'highest' only")
+                   help="precision class of the gram cross-term products "
+                        "(kernels.GRAM_FWD_PRECISION; 'high' is the bf16x3 "
+                        "split)")
     p.add_argument("--gram_bwd_relax", action="store_true",
-                   help="single-pass bf16 gram backward; not ported")
+                   help="single-pass bf16 for the gram products' "
+                        "transposed (gradient) dots "
+                        "(kernels.GRAM_BWD_RELAX)")
     p.add_argument("--prior", action="append", default=[],
                    help="hyperparameter prior target=kind(a,b); not ported")
     p.add_argument("--mean_function", default="auto",
@@ -147,20 +160,12 @@ def check_supported(args) -> None:
     """Raise for a flag the port cannot serve yet, naming the ROADMAP
     item that ports it, before any work."""
     breadth = []
-    if args.likelihood != "gaussian":
-        breadth.append(f"--likelihood {args.likelihood}")
-    if args.kernel != "rbf":
-        breadth.append(f"--kernel {args.kernel}")
     if args.prior:
         breadth.append("--prior")
     if args.feature != "points":
         breadth.append(f"--feature {args.feature}")
     if args.no_white:
         breadth.append("--no_white")
-    if args.gram_fwd_precision != "highest":
-        breadth.append(f"--gram_fwd_precision {args.gram_fwd_precision}")
-    if args.gram_bwd_relax:
-        breadth.append("--gram_bwd_relax")
     if breadth:
         raise NotImplementedError(
             f"{', '.join(breadth)}: not ported yet (ROADMAP queue 7)")
@@ -171,6 +176,32 @@ def check_supported(args) -> None:
     if args.dtype == "float64" and torch.device(args.device).type == "cuda":
         raise ValueError("--dtype float64: the Hopper kernels are float32; "
                          "run float64 with --device cpu")
+
+
+def load_data(likelihood: str, dataset: str, split: int, *,
+              num_classes: int = 3, **kw) -> Dataset:
+    """The loader of the reference's CLI for a likelihood: binary labels
+    for bernoulli, `num_classes` quantile-binned labels for multiclass,
+    softmax and ordinal, else the standardized regression data."""
+    if likelihood == "bernoulli":
+        return get_classification_data(dataset, split, **kw)
+    if likelihood in ("multiclass", "softmax", "ordinal"):
+        return get_multiclass_data(dataset, split, n_classes=num_classes,
+                                   **kw)
+    return get_regression_data(dataset, split, **kw)
+
+
+@contextlib.contextmanager
+def gram_switches(fwd_precision: str, bwd_relax: bool):
+    """``kernels.GRAM_FWD_PRECISION`` and ``GRAM_BWD_RELAX`` set for the
+    duration of a run (the reference sets them for the process)."""
+    saved = kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX
+    kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX = (fwd_precision,
+                                                          bwd_relax)
+    try:
+        yield
+    finally:
+        kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX = saved
 
 
 def seeds(seed: int) -> tuple:
@@ -199,8 +230,9 @@ def setup(args) -> Experiment:
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     data_kw = {} if args.data_dir is None else {"data_dir": args.data_dir}
-    data = get_regression_data(args.dataset, args.split, max_n=args.max_n,
-                               **data_kw)
+    data = load_data(args.likelihood, args.dataset, args.split,
+                     num_classes=args.num_classes, max_n=args.max_n,
+                     **data_kw)
     if data.synthetic:
         print(f"[data] {args.dataset}: no pre-staged file found -> "
               f"deterministic synthetic surrogate (N={data.N}, D={data.D})")
@@ -212,6 +244,7 @@ def setup(args) -> Experiment:
         num_samples=args.num_samples, d_w=args.d_w, kernel_kind=args.kernel,
         use_pallas={"auto": "auto", "on": True, "off": False}[args.pallas],
         amortized=not args.non_amortized, likelihood=args.likelihood,
+        num_classes=args.num_classes,
         mean_function=args.mean_function, white=not args.no_white,
         q_diag=args.q_diag, var_precision=args.var_precision,
         solve_precision=args.solve_precision)
@@ -235,6 +268,11 @@ def evaluate_model(args, exp: Experiment, params) -> dict:
 def run(args) -> dict:
     """Train, evaluate and write one results row; returns the row."""
     check_supported(args)
+    with gram_switches(args.gram_fwd_precision, args.gram_bwd_relax):
+        return _run(args)
+
+
+def _run(args) -> dict:
     exp = setup(args)
     config, params, X, Y, device = (exp.config, exp.params, exp.X, exp.Y,
                                     exp.device)
@@ -326,8 +364,10 @@ def run(args) -> dict:
         "train_time_s": train_time,
     }
     Database(args.results_db).write_result(row)
+    acc = (f"test_accuracy={metrics['test_accuracy']:.4f} "
+           if "test_accuracy" in metrics else "")
     print(f"[result] test_loglik={metrics['test_loglik']:.4f} "
-          f"test_rmse={metrics['test_rmse']:.4f} "
+          f"test_rmse={metrics['test_rmse']:.4f} {acc}"
           f"({steps_per_sec:.1f} steps/s, {train_time:.1f}s train)")
     return row
 

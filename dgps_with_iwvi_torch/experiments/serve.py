@@ -7,8 +7,12 @@ rebuilds the model from the ``build_args.json`` beside it (else from the
 flags), and scores an input table with the S-sample mixture predictive:
 mean, variance and, where targets are given, the per-point log-density,
 in original units through the training split's normalization
-statistics, as the evaluation path reports them. Runs on the card unless
-``--device cpu`` is given; the live path goes through the hand kernels.
+statistics, as the evaluation path reports them. The dataset goes
+through the loader of the model's likelihood, as in training: a
+classification model reads its labels as they are, and its mean is the
+class probabilities ([n, C] for multiclass and softmax). Runs on the card
+unless ``--device cpu`` is given; the live path goes through the hand
+kernels.
 
 Batches are fixed-size and padded, ``--depth`` of them in flight. Batch
 noise follows the batch's first row, as evaluation's chunks do
@@ -39,10 +43,9 @@ import time
 import numpy as np
 import torch
 
-from dgps_with_iwvi_torch.data import get_regression_data
 from dgps_with_iwvi_torch.device import resolve_device
 from dgps_with_iwvi_torch.evaluation.metrics import chunk_seed
-from dgps_with_iwvi_torch.experiments.main import seeds
+from dgps_with_iwvi_torch.experiments.main import load_data, seeds
 from dgps_with_iwvi_torch.models import (BuildArgs, build_model,
                                          load_build_args)
 from dgps_with_iwvi_torch.serving import (NormalizationStats, export_scorer,
@@ -68,6 +71,7 @@ def parse_args(argv=None):
     p.add_argument("--d_w", type=int, default=1)
     p.add_argument("--kernel", default="rbf")
     p.add_argument("--likelihood", default="gaussian")
+    p.add_argument("--num_classes", type=int, default=3)
     p.add_argument("--natgrad", default=None,
                    help="TrainState layout of the checkpoint "
                         "(default: from build_args.json, else 'final')")
@@ -155,7 +159,10 @@ def _run_from_export(args) -> dict:
           f"platforms={art.meta['platforms']} on {art.device}")
     if args.input is None:
         data_kw = {} if args.data_dir is None else {"data_dir": args.data_dir}
-        data = get_regression_data(args.dataset, args.split, **data_kw)
+        data = load_data(art.meta.get("likelihood", "gaussian"),
+                         args.dataset, args.split,
+                         num_classes=art.meta.get("num_classes", 3),
+                         **data_kw)
     else:
         data = None
     X_raw, Y_raw = _load_input_raw(args, data)
@@ -191,6 +198,15 @@ def _load_input(args, data):
     return Xn, Yn
 
 
+def _family(args) -> tuple:
+    """(likelihood, num_classes) of the checkpoint's model: from its
+    build_args.json, else from the flags."""
+    build = load_build_args(args.ckpt_dir)
+    if build is None:
+        return args.likelihood, args.num_classes
+    return build.likelihood, build.num_classes
+
+
 def _restore(args, data, device):
     """(config, params, step) of the latest checkpoint in --ckpt_dir."""
     # Prefer the BuildArgs that experiments.main writes beside the
@@ -202,7 +218,8 @@ def _restore(args, data, device):
         build = BuildArgs(
             configuration=args.configuration, mode=args.mode.upper(),
             num_inducing=args.M, num_iw_samples=args.K, d_w=args.d_w,
-            kernel_kind=args.kernel, likelihood=args.likelihood)
+            kernel_kind=args.kernel, likelihood=args.likelihood,
+            num_classes=args.num_classes)
         natgrad = natgrad or "final"
         print("[serve] no build_args.json in ckpt_dir; rebuilding from "
               "flags — structure flags like --q_diag/--non_amortized are "
@@ -231,7 +248,7 @@ def _restore(args, data, device):
     return config, params_fn(state), step
 
 
-def _score_live(args, config, params, Xn, Yn, d_out: int, device) -> tuple:
+def _score_live(args, config, params, Xn, Yn, d_y: int, device) -> tuple:
     """(outputs, seconds): the standardized table in fixed padded batches
     of --batch_size through the kernels (``serving.score_table``, --depth
     in flight, results narrowed to --transport), each batch's noise from
@@ -246,8 +263,9 @@ def _score_live(args, config, params, Xn, Yn, d_out: int, device) -> tuple:
         return score_table(
             lambda i, xb, yb: fn(xb, yb, chunk_seed(eval_seed,
                                                     which[i][0])),
-            Xn[:rows], None if Yn is None else Yn[:rows], d_in, d_out,
-            which, device, depth=args.depth, transport=args.transport)
+            Xn[:rows], None if Yn is None else Yn[:rows], d_in, d_y,
+            which, device, d_mean=config.layers[-1].d_out, depth=args.depth,
+            transport=args.transport)
 
     # the kernels' first use, outside the timed region
     score(batches[0][2], batches[:1])
@@ -277,9 +295,11 @@ def run(args) -> dict:
                          "scoring from a checkpoint needs a batch size > 0")
     device = resolve_device(args.device)
     data_kw = {} if args.data_dir is None else {"data_dir": args.data_dir}
-    data = get_regression_data(args.dataset, args.split, **data_kw)
+    likelihood, num_classes = _family(args)
+    data = load_data(likelihood, args.dataset, args.split,
+                     num_classes=num_classes, **data_kw)
     config, params, step = _restore(args, data, device)
-    d_in, d_out = data.X_train.shape[1], data.Y_train.shape[1]
+    d_in, d_y = data.X_train.shape[1], data.Y_train.shape[1]
 
     if args.export is not None:
         platforms = (tuple(args.export_platforms.split(","))
@@ -287,14 +307,15 @@ def run(args) -> dict:
         exp = export_scorer(
             params, config,
             batch_size="b" if args.batch_size == 0 else args.batch_size,
-            d_in=d_in, d_out=d_out, num_samples=args.num_predict_samples,
+            d_in=d_in, d_out=d_y, num_samples=args.num_predict_samples,
             stats=NormalizationStats.from_dataset(data),
             platforms=platforms)
         meta = save_scorer(
             args.export, exp, num_samples=args.num_predict_samples,
             has_stats=True,
             extra_meta={"checkpoint_step": step, "dataset": args.dataset,
-                        "split": args.split})
+                        "split": args.split, "likelihood": likelihood,
+                        "num_classes": num_classes})
         print(f"[serve] exported torch.export artifact -> {args.export} "
               f"(batch={meta['batch_size']}, S={meta['num_samples']}, "
               f"platforms={meta['platforms']}, raw units)")
@@ -304,7 +325,10 @@ def run(args) -> dict:
     Xn, Yn = _load_input(args, data)
     n = Xn.shape[0]
     S = args.num_predict_samples
-    res, dt = _score_live(args, config, params, Xn, Yn, d_out, device)
+    if Yn is None and likelihood == "switched_gaussian":
+        raise SystemExit("a switched_gaussian model needs the task-tagged "
+                         "Y in --input to score")
+    res, dt = _score_live(args, config, params, Xn, Yn, d_y, device)
     y_std = np.asarray(data.Y_std).reshape(1, -1)
     y_mean = np.asarray(data.Y_mean).reshape(1, -1)
     out = {

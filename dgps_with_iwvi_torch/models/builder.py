@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 
 import torch
 
@@ -25,7 +26,14 @@ from .layers import GPLayerConfig, LVLayerConfig
 
 @dataclasses.dataclass(frozen=True)
 class BuildArgs:
-    """The reference harness's build flags that this slice supports."""
+    """The reference harness's build flags that the port supports.
+
+    kernel_kind: any kind of ``ops.kernels.parse_kind`` ('rbf',
+    'matern52+linear', 'rbf[0:3]*coregion4x1[3]', ...). likelihood: any
+    of ``ops.likelihoods.LIKELIHOOD_KINDS``. num_classes: multiclass and
+    softmax give the final layer that many outputs; ordinal has C - 1 bin
+    edges. num_tasks: switched_gaussian's task count, 0 to read it from
+    the kernel's first coregion leaf."""
 
     configuration: str = "G"
     mode: str = "VI"            # 'VI' | 'IW'
@@ -41,6 +49,8 @@ class BuildArgs:
     kernel_kind: str = "rbf"
     amortized: bool = True
     likelihood: str = "gaussian"
+    num_classes: int = 3
+    num_tasks: int = 0
     jitter_tries: int = 4
     mean_function: str = "auto"
     white: bool = True
@@ -108,6 +118,45 @@ def kmeans_centers(X: torch.Tensor, k: int, generator: torch.Generator,
     return centers
 
 
+def _infer_num_tasks(kernel_kind: str) -> int:
+    """T from the first coregion leaf of the kind string
+    ('coregion<C>x<R>' -> C): the task count when num_tasks is 0."""
+    m = re.search(r"coregion(\d+)x\d+", kernel_kind)
+    if not m:
+        raise ValueError(
+            "switched_gaussian with num_tasks=0 needs a coregion leaf in "
+            f"kernel_kind to infer the task count (got {kernel_kind!r}); "
+            "set BuildArgs.num_tasks otherwise")
+    return int(m.group(1))
+
+
+def _final_width(args: BuildArgs, d_y: int) -> int:
+    """Outputs of the final GP layer: one per class for multiclass and
+    softmax (Y holds one label column), d_y - 1 for switched_gaussian (Y's
+    last column is the task index), else d_y."""
+    if args.likelihood in ("multiclass", "softmax", "ordinal") and d_y != 1:
+        raise ValueError(f"{args.likelihood} expects integer labels in one "
+                         f"Y column, got {d_y}")
+    if args.likelihood in ("multiclass", "softmax"):
+        return args.num_classes
+    if args.likelihood == "switched_gaussian":
+        if d_y < 2:
+            raise ValueError("switched_gaussian expects Y = [targets..., "
+                             "task_index], at least 2 columns")
+        return d_y - 1
+    return d_y
+
+
+def _likelihood_kwargs(args: BuildArgs) -> dict | None:
+    """The family's initial values that the build arguments fix."""
+    if args.likelihood == "ordinal":
+        return {"num_classes": args.num_classes}
+    if args.likelihood == "switched_gaussian":
+        return {"num_tasks": args.num_tasks
+                or _infer_num_tasks(args.kernel_kind)}
+    return None
+
+
 def build_config(args: BuildArgs, d_x: int, d_y: int,
                  num_data: int) -> DGPConfig:
     """Parse the configuration string into a static DGPConfig."""
@@ -115,6 +164,7 @@ def build_config(args: BuildArgs, d_x: int, d_y: int,
     if not tokens or not set(tokens) <= {"G", "L"} or not tokens.endswith("G"):
         raise ValueError(f"bad configuration {tokens!r}: letters G and L, "
                          "ending with a GP layer")
+    d_out_final = _final_width(args, d_y)
     inner_dim = min(d_x, args.inner_dim_cap)
     layer_cfgs: list = []
     width = d_x
@@ -132,7 +182,7 @@ def build_config(args: BuildArgs, d_x: int, d_y: int,
         else:
             gp_seen += 1
             final = gp_seen == n_gp
-            d_out = d_y if final else inner_dim
+            d_out = d_out_final if final else inner_dim
             layer_cfgs.append(GPLayerConfig(
                 d_in=width, d_out=d_out, num_inducing=args.num_inducing,
                 kernel_kind=args.kernel_kind, final=final, white=args.white,
@@ -190,5 +240,6 @@ def build_model(seed: int, args: BuildArgs, X, Y, *, device="cuda",
                 Z_inits.append(Zx[:, :cfg.d_in])
     params = init_dgp(gen, config, Z_inits=Z_inits,
                       noise_variance=args.noise_variance_init, dtype=dtype,
-                      device=device)
+                      device=device,
+                      likelihood_kwargs=_likelihood_kwargs(args))
     return config, params

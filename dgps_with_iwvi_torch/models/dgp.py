@@ -78,11 +78,13 @@ class DGPConfig:
 def init_dgp(generator: torch.Generator, config: DGPConfig,
              Z_inits: Sequence[torch.Tensor | None] | None = None,
              inner_q_sqrt_scale: float = 1e-5, noise_variance: float = 0.05,
-             *, dtype=torch.float32, device="cuda"):
+             *, dtype=torch.float32, device="cuda",
+             likelihood_kwargs: dict | None = None):
     """Full parameter tree {"layers": [...], "likelihood": {...}}.
 
     Inner GP layers start near-deterministic (q_sqrt = 1e-5 I), the final
-    layer at q_sqrt = I."""
+    layer at q_sqrt = I. likelihood_kwargs: the family's own initial
+    values (``likelihoods.init_params``)."""
     kw = dict(dtype=dtype, device=device)
     n_gp = sum(isinstance(c, GPLayerConfig) for c in config.layers)
     Z_iter = list(Z_inits) if Z_inits is not None else [None] * n_gp
@@ -96,8 +98,9 @@ def init_dgp(generator: torch.Generator, config: DGPConfig,
         else:
             layer_params.append(lv_layer_init(generator, cfg, **kw))
     return {"layers": layer_params,
-            "likelihood": likelihoods.init_params(config.likelihood,
-                                                  noise_variance, **kw)}
+            "likelihood": likelihoods.init_params(
+                config.likelihood, noise_variance, **kw,
+                **(likelihood_kwargs or {}))}
 
 
 def prefactor_gp_layers(params, config: DGPConfig) -> dict:
@@ -223,9 +226,11 @@ def predict_f(params, config: DGPConfig, X: torch.Tensor,
     return fmean, fvar
 
 
-def _mixture_moments(params, config, fmean, fvar):
+def _mixture_moments(params, config, fmean, fvar, Y=None):
+    """Moments of the S-sample mixture; Y (task-tagged) is read by the
+    switched Gaussian only."""
     m, v = likelihoods.dispatch_predict_mean_and_var(
-        params["likelihood"], fmean, fvar, kind=config.likelihood)
+        params["likelihood"], fmean, fvar, kind=config.likelihood, y=Y)
     mix_mean = torch.mean(m, dim=0)
     mix_var = torch.mean(v + torch.square(m), dim=0) - torch.square(mix_mean)
     return mix_mean, mix_var
@@ -239,11 +244,14 @@ def _mixture_log_density(params, config, fmean, fvar, Y):
 
 def predict_y(params, config: DGPConfig, X: torch.Tensor,
               generator: torch.Generator | None = None,
-              num_samples: int | None = None, *, eps: Sequence | None = None):
-    """Mixture predictive moments of (1/S) sum_s N(m_s, v_s + s2)."""
+              num_samples: int | None = None, *, eps: Sequence | None = None,
+              Y: torch.Tensor | None = None):
+    """Mixture predictive moments of (1/S) sum_s N(m_s, v_s + s2). Y is
+    needed by the switched Gaussian only, whose noise is indexed by the
+    task column Y[:, -1]."""
     fmean, fvar = predict_f(params, config, X, generator, num_samples,
                             eps=eps)
-    return _mixture_moments(params, config, fmean, fvar)
+    return _mixture_moments(params, config, fmean, fvar, Y)
 
 
 def predict_log_density(params, config: DGPConfig, X: torch.Tensor,
@@ -269,5 +277,5 @@ def predict_y_and_log_density(params, config: DGPConfig, X: torch.Tensor,
     Returns ((mix_mean, mix_var), log_density)."""
     fmean, fvar = predict_f(params, config, X, generator, num_samples,
                             eps=eps, factors=factors)
-    return (_mixture_moments(params, config, fmean, fvar),
+    return (_mixture_moments(params, config, fmean, fvar, Y),
             _mixture_log_density(params, config, fmean, fvar, Y))

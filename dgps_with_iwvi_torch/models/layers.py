@@ -89,7 +89,9 @@ def gp_layer_init(generator: torch.Generator, cfg: GPLayerConfig,
                   kernel_variance: float = 1.0, q_sqrt_scale: float = 1.0, *,
                   dtype=torch.float32, device="cuda"):
     """Parameters of one whitened SVGP layer: q_mu = 0, q_sqrt = scale * I,
-    unit variance, ARD lengthscales; Z standard normal unless given."""
+    the kernel's tree from ``kernels.kernel_params`` (any kind, leaf or
+    composite: unit variance, ARD lengthscales); Z standard normal unless
+    given."""
     kw = dict(dtype=dtype, device=device)
     m = cfg.num_inducing
     if Z is None:
@@ -184,7 +186,7 @@ def gp_layer_propagate(
         F, q_sqrt, q_cov, cfg.kernel_kind, cfg.white, numerics.var,
         numerics.solve, serve_pallas, serve_cond.needs_grad(
             F, params["Z"], params["q_mu"], q_sqrt, Lm, Linv,
-            *params["kernel"].values()))
+            *kernels.param_leaves(params["kernel"])))
     fused_sample = serve_fused and not cfg.final
     if serve_fused:
         noise = (None if cfg.final else

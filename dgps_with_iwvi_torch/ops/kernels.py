@@ -1,21 +1,34 @@
-"""RBF kernel with ARD lengthscales (port of dgps_with_iwvi_tpu/ops/kernels.py).
+"""GP kernels (port of dgps_with_iwvi_tpu/ops/kernels.py).
 
-Only the kind the flagship model uses: ``rbf_params`` (l.37),
-``scaled_squared_distance`` (l.74), ``K`` / ``Kdiag`` (l.679, l.707) and
-the cross gram's backward that keeps its output as the residual
-(``_rbf_gram_kres``, l.216-263), taken by the reference's size rule
-(``_use_kuf_residual``, l.185: float32 and at least 4 MB, so the M x M
-Kuu grams stay on plain autograd). Every other kernel kind raises until
-ROADMAP queue 7 ports the kernel family.
+The leaf kinds of the reference (l.288-297): RBF, Matérn 1/2, 3/2 and
+5/2, rational quadratic, cosine, arc-cosine of orders 0, 1 and 2, linear,
+polynomial, periodic, white, constant and ``coregion<C>x<R>``; the
+combinators '+' and '*' in the kind string ('*' binds tighter, so
+``parse_kind`` gives a sum of products); and a per-leaf active-dims
+suffix (``rbf[0:3]``, ``linear[0,2,5]``). A leaf's parameters are a flat
+dict of tensors; a composite kind nests them as ``{"terms": ((leaf, ...),
+...)}``, mirroring the parse, so the kind string fixes the tree.
 
 The squared distance uses the ||x||^2 - 2 x.y + ||y||^2 expansion with the
-cross term at the ``highest`` class (the expansion cancels
-catastrophically in bf16) and is clipped at 0.
+cross term at ``GRAM_FWD_PRECISION`` (``highest`` by default: the
+expansion cancels catastrophically in bf16) and is clipped at 0. The RBF
+cross gram keeps its output as its backward residual where the
+reference's size rule takes that path (``_rbf_gram_kres``, l.216-263;
+``_use_kuf_residual``, l.185: float32 and at least 4 MB, so the M x M
+Kuu grams stay on plain autograd).
+
+Two module switches, read at call time as the reference reads them at
+trace time (l.61-71): ``GRAM_FWD_PRECISION`` ('highest' or 'high', the
+bf16x3 split) is the class of every gram cross-term product, and
+``GRAM_BWD_RELAX`` runs their transposed (gradient) products at
+'default', single-pass bf16. The defaults are 'highest' and off.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 from typing import Dict
 
 import torch
@@ -27,33 +40,250 @@ KernelParams = Dict[str, torch.Tensor]
 
 GRAM_KRES_MIN_BYTES = 4 * 1024 * 1024
 
+# class of the gram cross-term products ('highest' | 'high'), and whether
+# their transposed products run single-pass bf16 (reference l.61-71)
+GRAM_FWD_PRECISION: str = "highest"
+GRAM_BWD_RELAX: bool = False
 
-def _check_kind(kind: str) -> None:
-    if kind != "rbf":
-        raise NotImplementedError(
-            f"kernel kind {kind!r} is not ported yet (ROADMAP queue 7); "
-            "the port has 'rbf' only")
+STATIONARY_KINDS = ("rbf", "matern12", "matern32", "matern52", "rq",
+                    "cosine")
+LEAF_KINDS = STATIONARY_KINDS + ("linear", "polynomial", "periodic",
+                                 "white", "constant", "arccosine",
+                                 "arccosine0", "arccosine2")
+ARCCOSINE_ORDERS = {"arccosine0": 0, "arccosine": 1, "arccosine2": 2}
+_COREGION_RE = r"coregion(\d+)x(\d+)$"
+# gpflow 1.5 squeezes cos(theta) by its jitter before acos: the value
+# error and the gradient at |cos| = 1 (the gram's diagonal) stay bounded
+_ARCCOS_EPS = 1e-6
+
+
+def gram_classes() -> tuple:
+    """(forward, backward) precision classes of the gram products."""
+    if GRAM_FWD_PRECISION not in ("highest", "high"):
+        raise ValueError(
+            f"GRAM_FWD_PRECISION={GRAM_FWD_PRECISION!r}: only 'highest' and "
+            "'high' are allowed; 'default' (single-pass bf16) corrupts the "
+            "squared-distance cancellation")
+    return GRAM_FWD_PRECISION, ("default" if GRAM_BWD_RELAX
+                                else GRAM_FWD_PRECISION)
+
+
+def _gram_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    fwd, bwd = gram_classes()
+    return precision.matmul(x, y, fwd, bwd)
 
 
 def rbf_params(input_dim: int, variance: float = 1.0, lengthscales=1.0,
-               *, dtype=torch.float32, device="cuda") -> KernelParams:
+               ard: bool = True, *, dtype=torch.float32,
+               device="cuda") -> KernelParams:
     """Unconstrained RBF parameters: unit variance, ARD lengthscales."""
-    ls = torch.broadcast_to(
-        torch.as_tensor(lengthscales, dtype=dtype, device=device),
-        (input_dim,)).clone()
+    kw = dict(dtype=dtype, device=device)
+    ls = torch.broadcast_to(torch.as_tensor(lengthscales, **kw),
+                            (input_dim,) if ard else (1,)).clone()
     return {
-        "raw_variance": positive_inverse(
-            torch.as_tensor(variance, dtype=dtype, device=device)),
+        "raw_variance": positive_inverse(torch.as_tensor(variance, **kw)),
         "raw_lengthscales": positive_inverse(ls),
     }
 
 
+def linear_params(input_dim: int, variance: float = 1.0, ard: bool = True,
+                  *, dtype=torch.float32, device="cuda") -> KernelParams:
+    """gpflow Linear: k(x, x') = sum_d v_d x_d x'_d."""
+    v = torch.broadcast_to(torch.as_tensor(variance, dtype=dtype,
+                                           device=device),
+                           (input_dim,) if ard else (1,)).clone()
+    return {"raw_variance": positive_inverse(v)}
+
+
+def polynomial_params(input_dim: int, variance: float = 1.0,
+                      offset: float = 1.0, degree: float = 3.0,
+                      ard: bool = True, *, dtype=torch.float32,
+                      device="cuda") -> KernelParams:
+    """gpflow Polynomial: (sum_d v_d x_d x'_d + offset)^degree; the degree
+    is held out of autograd."""
+    kw = dict(dtype=dtype, device=device)
+    p = linear_params(input_dim, variance, ard, **kw)
+    p["raw_offset"] = positive_inverse(torch.as_tensor(offset, **kw))
+    p["degree"] = torch.as_tensor(degree, **kw)
+    return p
+
+
+def periodic_params(input_dim: int, variance: float = 1.0, lengthscales=1.0,
+                    period: float = 1.0, ard: bool = True, *,
+                    dtype=torch.float32, device="cuda") -> KernelParams:
+    """gpflow Periodic (1.5.x):
+    k = v exp(-0.5 sum_d sin^2(pi (x_d - x'_d) / p_d) / l_d^2)."""
+    kw = dict(dtype=dtype, device=device)
+    shape = (input_dim,) if ard else (1,)
+    return {
+        "raw_variance": positive_inverse(torch.as_tensor(variance, **kw)),
+        "raw_lengthscales": positive_inverse(torch.broadcast_to(
+            torch.as_tensor(lengthscales, **kw), shape).clone()),
+        "raw_period": positive_inverse(torch.broadcast_to(
+            torch.as_tensor(period, **kw), shape).clone()),
+    }
+
+
+def white_params(variance: float = 1.0, *, dtype=torch.float32,
+                 device="cuda") -> KernelParams:
+    return {"raw_variance": positive_inverse(
+        torch.as_tensor(variance, dtype=dtype, device=device))}
+
+
+constant_params = white_params
+
+
+def rq_params(input_dim: int, variance: float = 1.0, lengthscales=1.0,
+              alpha: float = 1.0, ard: bool = True, *, dtype=torch.float32,
+              device="cuda") -> KernelParams:
+    """gpflow RationalQuadratic: v (1 + r2 / (2 alpha))^(-alpha)."""
+    kw = dict(dtype=dtype, device=device)
+    p = rbf_params(input_dim, variance, lengthscales, ard, **kw)
+    p["raw_alpha"] = positive_inverse(torch.as_tensor(alpha, **kw))
+    return p
+
+
+def arccosine_params(input_dim: int, variance: float = 1.0,
+                     weight_variances=1.0, bias_variance: float = 1.0,
+                     ard: bool = True, *, dtype=torch.float32,
+                     device="cuda") -> KernelParams:
+    """gpflow ArcCosine (Cho & Saul 2009); the order comes from the kind
+    string (``ARCCOSINE_ORDERS``)."""
+    kw = dict(dtype=dtype, device=device)
+    w = torch.broadcast_to(torch.as_tensor(weight_variances, **kw),
+                           (input_dim,) if ard else (1,)).clone()
+    return {
+        "raw_variance": positive_inverse(torch.as_tensor(variance, **kw)),
+        "raw_weight_variances": positive_inverse(w),
+        "raw_bias_variance": positive_inverse(
+            torch.as_tensor(bias_variance, **kw)),
+    }
+
+
+def coregion_params(output_dim: int, rank: int, *, dtype=torch.float32,
+                    device="cuda") -> KernelParams:
+    """gpflow Coregion: B = W W^T + diag(kappa); W starts at the
+    reference's deterministic 0.1 cos(i + R j), kappa at 1."""
+    kw = dict(dtype=dtype, device=device)
+    ij = torch.arange(output_dim * rank, **kw).reshape(output_dim, rank)
+    return {"W": 0.1 * torch.cos(ij),
+            "raw_kappa": positive_inverse(torch.ones((output_dim,), **kw))}
+
+
+def coregion_B(params: KernelParams) -> torch.Tensor:
+    """The [C, C] task covariance W W^T + diag(kappa)."""
+    W = params["W"]
+    return W @ W.T + torch.diag(positive(params["raw_kappa"]))
+
+
+@functools.lru_cache(maxsize=None)
+def coregion_shape(name: str) -> tuple | None:
+    """'coregion3x1' -> (3, 1); None when the name is not a coregion."""
+    m = re.match(_COREGION_RE, name)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+@functools.lru_cache(maxsize=None)
+def parse_kind(kind: str) -> tuple:
+    """'a*b+c' -> (('a', 'b'), ('c',)): a sum of products of leaf tokens,
+    each validated by ``split_token``."""
+    terms = tuple(tuple(f.strip() for f in t.split("*"))
+                  for t in kind.split("+"))
+    for t in terms:
+        for f in t:
+            split_token(f)
+    return terms
+
+
+@functools.lru_cache(maxsize=None)
+def split_token(token: str) -> tuple:
+    """'rbf[0:3]' -> ('rbf', (0, 1, 2)); 'rbf' -> ('rbf', None).
+
+    '[a:b]' is the half-open range, '[i,j,...]' an explicit list, '[i]'
+    one column; 'exponential' is gpflow's alias of 'matern12'."""
+    name, bracket, spec = token.partition("[")
+    name = name.strip()
+    if name == "exponential":
+        name = "matern12"
+    if name not in LEAF_KINDS and coregion_shape(name) is None:
+        raise ValueError(f"unknown kernel kind {name!r} in {token!r}; "
+                         f"leaves: {LEAF_KINDS} + 'coregion<C>x<R>'")
+    if not bracket:
+        return name, None
+    spec = spec.strip()
+    if not spec.endswith("]"):
+        raise ValueError(f"unterminated active-dims suffix in {token!r}")
+    spec = spec[:-1].strip()
+    try:
+        if ":" in spec:
+            a, b = spec.split(":")
+            dims = tuple(range(int(a), int(b)))
+        else:
+            dims = tuple(int(s) for s in spec.split(","))
+    except ValueError:
+        raise ValueError(
+            f"bad active-dims suffix in {token!r}: use '[a:b]' (half-open "
+            "range) or '[i,j,...]' (explicit columns)") from None
+    if not dims or len(set(dims)) != len(dims) or min(dims) < 0:
+        raise ValueError(f"active dims {dims} in {token!r} must be "
+                         "non-empty, unique and non-negative")
+    return name, dims
+
+
 def kernel_params(kind: str, input_dim: int, variance: float = 1.0,
-                  lengthscales=1.0, *, dtype=torch.float32,
-                  device="cuda") -> KernelParams:
-    _check_kind(kind)
-    return rbf_params(input_dim, variance, lengthscales, dtype=dtype,
-                      device=device)
+                  lengthscales=1.0, ard: bool = True, *,
+                  dtype=torch.float32, device="cuda") -> KernelParams:
+    """One leaf's parameters, or the composite ``{"terms": ...}`` tree
+    whose structure mirrors ``parse_kind(kind)``."""
+    kw = dict(dtype=dtype, device=device)
+    terms = parse_kind(kind)
+    if len(terms) == 1 and len(terms[0]) == 1:
+        return _leaf_params(terms[0][0], input_dim, variance, lengthscales,
+                            ard, kw)
+    return {"terms": tuple(
+        tuple(_leaf_params(f, input_dim, variance, lengthscales, ard, kw)
+              for f in t)
+        for t in terms)}
+
+
+def _leaf_params(token, input_dim, variance, lengthscales, ard, kw):
+    kind, dims = split_token(token)
+    if dims is not None:
+        if max(dims) >= input_dim:
+            raise ValueError(f"active dims {dims} out of range for "
+                             f"input_dim={input_dim}")
+        input_dim = len(dims)  # per-dim parameters cover the selection
+    cr = coregion_shape(kind)
+    if cr is not None:
+        if input_dim != 1:
+            raise ValueError(
+                f"{kind} reads ONE integer task column; select it with an "
+                f"active-dims suffix ('{kind}[{input_dim - 1}]') unless the "
+                "kernel input is already 1-D")
+        return coregion_params(*cr, **kw)
+    if kind == "rq":
+        return rq_params(input_dim, variance, lengthscales, ard, **kw)
+    if kind in ARCCOSINE_ORDERS:
+        return arccosine_params(input_dim, variance, ard=ard, **kw)
+    if kind in STATIONARY_KINDS:
+        return rbf_params(input_dim, variance, lengthscales, ard, **kw)
+    if kind == "linear":
+        return linear_params(input_dim, variance, ard, **kw)
+    if kind == "polynomial":
+        return polynomial_params(input_dim, variance, ard=ard, **kw)
+    if kind == "periodic":
+        return periodic_params(input_dim, variance, lengthscales, ard=ard,
+                               **kw)
+    return white_params(variance, **kw)  # white | constant
+
+
+def param_leaves(params) -> list:
+    """Every tensor of a kernel's parameter tree, leaf or composite."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in param_leaves(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in param_leaves(v)]
+    return [params]
 
 
 def kernel_variance(params: KernelParams) -> torch.Tensor:
@@ -71,7 +301,7 @@ def scaled_squared_distance(X: torch.Tensor, X2: torch.Tensor,
     X2s = X2 / lengthscales
     xx = torch.sum(torch.square(Xs), dim=-1)
     yy = torch.sum(torch.square(X2s), dim=-1)
-    cross = precision.matmul(Xs, X2s.transpose(-1, -2), "highest")
+    cross = _gram_matmul(Xs, X2s.transpose(-1, -2))
     d2 = xx[..., :, None] - 2.0 * cross + yy[..., None, :]
     return torch.clamp(d2, min=0.0)
 
@@ -95,16 +325,18 @@ class RbfGramKres(torch.autograd.Function):
 
     Forward is the plain path's math. Backward: dd2 = -0.5 g K, zero where
     the d2 >= 0 clamp bound (recovered as K >= var), and the cotangent
-    dots at ``highest``."""
+    dots at the gram's backward class."""
 
     @staticmethod
     def forward(ctx, Xs, X2s, var):
+        fwd, bwd = gram_classes()
         xx = torch.sum(torch.square(Xs), dim=-1)
         yy = torch.sum(torch.square(X2s), dim=-1)
-        cross = precision.matmul(Xs, X2s.transpose(-1, -2), "highest")
+        cross = precision.matmul(Xs, X2s.transpose(-1, -2), fwd)
         d2 = xx[..., :, None] - 2.0 * cross + yy[..., None, :]
         out = var * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
         ctx.save_for_backward(Xs, X2s, var, out)
+        ctx.bwd = bwd
         return out
 
     @staticmethod
@@ -113,8 +345,8 @@ class RbfGramKres(torch.autograd.Function):
         dvar = torch.sum(g * K) / var
         dd2 = torch.where(K < var, -0.5 * g * K, torch.zeros_like(K))
         dcross = -2.0 * dd2
-        dXs = precision.matmul(dcross, X2s, "highest")
-        dX2s = precision.matmul(dcross.transpose(-1, -2), Xs, "highest")
+        dXs = precision.matmul(dcross, X2s, ctx.bwd)
+        dX2s = precision.matmul(dcross.transpose(-1, -2), Xs, ctx.bwd)
         dXs = dXs + 2.0 * Xs * torch.sum(dd2, dim=-1)[..., None]
         dX2s = dX2s + 2.0 * X2s * torch.sum(dd2, dim=-2)[..., None]
         return (precision.reduce_to_shape(dXs, Xs.shape),
@@ -122,24 +354,192 @@ class RbfGramKres(torch.autograd.Function):
                 torch.reshape(dvar, var.shape))
 
 
+def _matern_from_r(r: torch.Tensor, order: int) -> torch.Tensor:
+    if order == 1:  # Matern 1/2 (exponential)
+        return torch.exp(-r)
+    if order == 3:  # Matern 3/2
+        s = math.sqrt(3.0) * r
+        return (1.0 + s) * torch.exp(-s)
+    if order == 5:  # Matern 5/2
+        s = math.sqrt(5.0) * r
+        return (1.0 + s + (5.0 / 3.0) * torch.square(r)) * torch.exp(-s)
+    raise ValueError(f"unsupported Matern order {order}")
+
+
+def _weighted_inner(params, X, X2):
+    """sum_d v_d x_d x'_d as one product (linear / polynomial) at the
+    gram's precision classes: it feeds a Cholesky."""
+    v = positive(params["raw_variance"])
+    return _gram_matmul(X * v, X2.transpose(-1, -2))
+
+
+def _arccos_J(theta: torch.Tensor, order: int) -> torch.Tensor:
+    """Cho & Saul J_n(theta) for orders 0, 1, 2."""
+    if order == 0:
+        return math.pi - theta
+    if order == 1:
+        return torch.sin(theta) + (math.pi - theta) * torch.cos(theta)
+    c = torch.cos(theta)
+    return (3.0 * torch.sin(theta) * c
+            + (math.pi - theta) * (1.0 + 2.0 * c * c))
+
+
+def _arccos_moments(params, X, X2=None):
+    """(cross, sxx, syy): bias-shifted weighted inner products, each
+    >= the bias > 0."""
+    w = positive(params["raw_weight_variances"])
+    b = positive(params["raw_bias_variance"])
+    sxx = torch.sum(w * torch.square(X), dim=-1) + b
+    if X2 is None:
+        return None, sxx, None
+    cross = _gram_matmul(X * w, X2.transpose(-1, -2)) + b
+    syy = torch.sum(w * torch.square(X2), dim=-1) + b
+    return cross, sxx, syy
+
+
+def _coregion_index(X: torch.Tensor, C: int) -> torch.Tensor:
+    """[..., N, 1] float task column -> [..., N] task indices, rounded
+    (half to even, as the reference) and clipped to [0, C)."""
+    return torch.clamp(torch.round(X[..., 0]), 0, C - 1).long()
+
+
+def _select(X: torch.Tensor, dims) -> torch.Tensor:
+    """The active columns `dims` of X: a view for a range of columns."""
+    if dims is None:
+        return X
+    if dims == tuple(range(dims[0], dims[-1] + 1)):
+        return X[..., dims[0]:dims[-1] + 1]
+    return X[..., list(dims)]
+
+
+def _leaf_K(params, X, X2, token: str, same_set: bool,
+            kuf_residual: bool) -> torch.Tensor:
+    kind, dims = split_token(token)
+    X, X2 = _select(X, dims), _select(X2, dims)
+    cr = coregion_shape(kind)
+    if cr is not None:
+        B = coregion_B(params)
+        ix = _coregion_index(X, cr[0])
+        jx = _coregion_index(X2, cr[0])
+        return B[ix[..., :, None], jx[..., None, :]]
+    if kind in STATIONARY_KINDS:
+        ls = kernel_lengthscales(params)
+        var = kernel_variance(params)
+        if kind == "cosine":
+            # the positive-definite projected form (gpflow 2)
+            u = torch.sum(X / ls, dim=-1)
+            u2 = torch.sum(X2 / ls, dim=-1)
+            return var * torch.cos(u[..., :, None] - u2[..., None, :])
+        if kind == "rbf":
+            if kuf_residual and _use_kuf_residual(X, X2):
+                return RbfGramKres.apply(X / ls, X2 / ls, var)
+            return var * torch.exp(-0.5 * scaled_squared_distance(X, X2, ls))
+        d2 = scaled_squared_distance(X, X2, ls)
+        if kind == "rq":
+            alpha = positive(params["raw_alpha"])
+            return var * (1.0 + d2 / (2.0 * alpha)) ** (-alpha)
+        order = {"matern12": 1, "matern32": 3, "matern52": 5}[kind]
+        r = torch.sqrt(torch.clamp(d2, min=1e-36))
+        return var * _matern_from_r(r, order)
+    if kind in ARCCOSINE_ORDERS:
+        order = ARCCOSINE_ORDERS[kind]
+        var = kernel_variance(params)
+        cross, sxx, syy = _arccos_moments(params, X, X2)
+        denom = torch.sqrt(sxx)[..., :, None] * torch.sqrt(syy)[..., None, :]
+        cos_t = _ARCCOS_EPS + (1.0 - 2.0 * _ARCCOS_EPS) * cross / denom
+        theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
+        return (var / math.pi) * denom ** order * _arccos_J(theta, order)
+    if kind == "linear":
+        return _weighted_inner(params, X, X2)
+    if kind == "polynomial":
+        inner = _weighted_inner(params, X, X2) + positive(params["raw_offset"])
+        return inner ** params["degree"].detach()
+    if kind == "periodic":
+        # per-dim differences [..., N, M, D]: no product form exists for
+        # sin^2 distances
+        ls = kernel_lengthscales(params)
+        per = positive(params["raw_period"])
+        var = kernel_variance(params)
+        diff = X[..., :, None, :] - X2[..., None, :, :]
+        s = torch.sin(math.pi * diff / per) / ls
+        return var * torch.exp(-0.5 * torch.sum(torch.square(s), dim=-1))
+    var = kernel_variance(params)
+    n, m = X.shape[-2], X2.shape[-2]
+    lead = torch.broadcast_shapes(X.shape[:-2], X2.shape[:-2])
+    if kind == "white":
+        # var I on one set (Kuu), zero cross-covariance otherwise
+        if same_set and n == m:
+            eye = torch.eye(n, dtype=X.dtype, device=X.device)
+            return torch.broadcast_to(var * eye, X.shape[:-2] + (n, n))
+        return torch.zeros(lead + (n, m), dtype=X.dtype, device=X.device)
+    if kind == "constant":
+        return torch.broadcast_to(var, lead + (n, m))
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def _leaf_Kdiag(params, X, token: str) -> torch.Tensor:
+    kind, dims = split_token(token)
+    X = _select(X, dims)
+    cr = coregion_shape(kind)
+    if cr is not None:
+        ix = _coregion_index(X, cr[0])
+        W = params["W"]
+        return (torch.sum(torch.square(W), dim=-1)
+                + positive(params["raw_kappa"]))[ix]
+    if kind in STATIONARY_KINDS + ("white", "constant", "periodic"):
+        return torch.broadcast_to(kernel_variance(params), X.shape[:-1])
+    if kind in ARCCOSINE_ORDERS:
+        # theta = 0 on the diagonal: J(0) = pi (orders 0, 1), 3 pi (2)
+        order = ARCCOSINE_ORDERS[kind]
+        _, sxx, _ = _arccos_moments(params, X)
+        j0 = 3.0 if order == 2 else 1.0
+        return kernel_variance(params) * j0 * sxx ** order
+    inner = torch.sum(positive(params["raw_variance"]) * torch.square(X),
+                      dim=-1)
+    if kind == "linear":
+        return inner
+    if kind == "polynomial":
+        return (inner + positive(params["raw_offset"])) \
+            ** params["degree"].detach()
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
 def K(params: KernelParams, X: torch.Tensor, X2: torch.Tensor | None = None,
-      *, kind: str = "rbf", kuf_residual: bool = True) -> torch.Tensor:
+      *, kind: str = "rbf", same_set: bool | None = None,
+      kuf_residual: bool = True) -> torch.Tensor:
     """Gram k(X, X2): [..., N, D] x [..., M, D] -> [..., N, M].
 
-    kuf_residual=False keeps even a large gram on plain autograd (the
-    full-batch escalation)."""
-    _check_kind(kind)
+    A composite kind takes the ``{"terms": ...}`` tree of
+    ``kernel_params``. A 'white' term is var I only on one set: X2
+    omitted or the same object as X, unless ``same_set`` says otherwise
+    (pass it where a copy stands for the same set). kuf_residual=False
+    keeps even a large RBF gram on plain autograd (the full-batch
+    escalation)."""
+    same = same_set if same_set is not None else (X2 is None or X2 is X)
     if X2 is None:
         X2 = X
-    ls = kernel_lengthscales(params)
-    var = kernel_variance(params)
-    if kuf_residual and _use_kuf_residual(X, X2):
-        return RbfGramKres.apply(X / ls, X2 / ls, var)
-    return var * torch.exp(-0.5 * scaled_squared_distance(X, X2, ls))
+    terms = parse_kind(kind)
+    if len(terms) == 1 and len(terms[0]) == 1:
+        return _leaf_K(params, X, X2, terms[0][0], same, kuf_residual)
+    out = None
+    for tp, factors in zip(params["terms"], terms):
+        prod = _leaf_K(tp[0], X, X2, factors[0], same, kuf_residual)
+        for fp, fk in zip(tp[1:], factors[1:]):
+            prod = prod * _leaf_K(fp, X, X2, fk, same, kuf_residual)
+        out = prod if out is None else out + prod
+    return out
 
 
 def Kdiag(params: KernelParams, X: torch.Tensor, *,
           kind: str = "rbf") -> torch.Tensor:
     """diag k(X, X): [..., N, D] -> [..., N]."""
-    _check_kind(kind)
-    return torch.broadcast_to(kernel_variance(params), X.shape[:-1])
+    terms = parse_kind(kind)
+    if len(terms) == 1 and len(terms[0]) == 1:
+        return _leaf_Kdiag(params, X, terms[0][0])
+    out = None
+    for tp, factors in zip(params["terms"], terms):
+        prod = _leaf_Kdiag(tp[0], X, factors[0])
+        for fp, fk in zip(tp[1:], factors[1:]):
+            prod = prod * _leaf_Kdiag(fp, X, fk)
+        out = prod if out is None else out + prod
+    return out

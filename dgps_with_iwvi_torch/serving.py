@@ -18,7 +18,10 @@ The program's signature is fixed::
     score(X[B, d_in] f32, Y[B, d_out] f32, seed int64[]) -> (mean, var, log_density)
 
 with raw-unit inputs and outputs when statistics were baked in. Y feeds
-only the log-density; pass zeros when targets are unknown.
+the log-density (and a switched Gaussian's task column); pass zeros when
+targets are unknown. d_out is Y's width; the mean and variance have the
+model's output width, ``d_mean`` in the meta: C class probabilities for a
+multiclass or softmax model, whose Y is one label column.
 
 The artifact holds stock ATen ops only, as the reference's holds no
 Mosaic call: it is traced under ``ops.hopper.build.plain_versions()``
@@ -116,12 +119,26 @@ def make_scorer_fn(params, config, num_samples: int,
     return score
 
 
-def score_table(call, X, Y, d_in: int, d_out: int, batches, device, *,
-                depth: int | None = None, transport: str = "float32",
+def label_width(config) -> int:
+    """Columns of Y that a model reads: one label column for multiclass
+    and softmax, the targets and the task index for switched_gaussian,
+    else one per output."""
+    d_out = config.layers[-1].d_out  # DGPConfig: a GP layer
+    if config.likelihood in ("multiclass", "softmax"):
+        return 1
+    if config.likelihood == "switched_gaussian":
+        return d_out + 1
+    return d_out
+
+
+def score_table(call, X, Y, d_in: int, d_y: int, batches, device, *,
+                d_mean: int | None = None, depth: int | None = None,
+                transport: str = "float32",
                 transport_in: str = "float32") -> dict:
     """The batch loop that ``Scorer``, ``ServingArtifact`` and the serve
-    CLI share. X [n, d_in] and Y [n, d_out] (or None: zeros, and no
-    log_density) form one host table, zero-padded past n; batch i of
+    CLI share. X [n, d_in] and Y [n, d_y] (or None: zeros, and no
+    log_density) form one host table, zero-padded past n; the mean and
+    variance have ``d_mean`` columns (default d_y); batch i of
     `batches` (start, rows, keep) sends rows [start, start + rows) to
     ``call(i, xb, yb) -> (mean, var, log_density)`` and keeps its first
     `keep` results. Returns {"mean", "var"[, "log_density"]} as float32
@@ -137,6 +154,7 @@ def score_table(call, X, Y, d_in: int, d_out: int, batches, device, *,
     inputs); ``transport`` the dtype the results cross back in, cast on
     the device (it rounds the delivered values only). Results come back
     in one copy."""
+    d_out = d_y if d_mean is None else d_mean
     X = np.asarray(X, np.float32)
     n = X.shape[0]
     if X.ndim != 2 or X.shape[1] != d_in:
@@ -144,11 +162,11 @@ def score_table(call, X, Y, d_in: int, d_out: int, batches, device, *,
     have_y = Y is not None
     if have_y:
         Y = np.asarray(Y, np.float32)
-        if Y.shape != (n, d_out):
-            raise ValueError(f"Y must be [{n}, {d_out}] to match X and the "
-                             f"scorer's d_out, got {Y.shape}")
+        if Y.shape != (n, d_y):
+            raise ValueError(f"Y must be [{n}, {d_y}] to match X and the "
+                             f"scorer's labels, got {Y.shape}")
     rows = max(start + size for start, size, _ in batches)
-    table = np.zeros((rows, d_in + d_out), np.float32)
+    table = np.zeros((rows, d_in + d_y), np.float32)
     table[:n, :d_in] = X
     if have_y:
         table[:n, d_in:] = Y
@@ -196,19 +214,26 @@ class Scorer:
         self.d_in = first.d_x if (isinstance(first, LVLayerConfig)
                                   and first.d_x > 0) else first.d_in
         self.d_out = config.layers[-1].d_out  # DGPConfig: a GP layer
+        self.d_y = label_width(config)
         self._fn = make_scorer_fn(params, config, num_samples, stats,
                                   device=self.device)
 
     def score(self, X, Y=None, *, seed: int = 0,
               max_batch: int = 8192) -> dict:
-        """X [n, d_in] (and Y [n, d_out], or None: log_density omitted) ->
-        {"mean", "var"[, "log_density"]} as float32 numpy arrays.
+        """X [n, d_in] (and Y [n, d_y], or None: log_density omitted) ->
+        {"mean", "var" [n, d_out][, "log_density" [n]]} as float32 numpy
+        arrays. A switched Gaussian reads each point's task from Y, so it
+        needs Y.
 
         Batch i uses seed + i; a short last batch is padded to max_batch,
         so every call runs at one shape (``score_table``)."""
+        if Y is None and self.config.likelihood == "switched_gaussian":
+            raise ValueError("a switched_gaussian model needs the "
+                             "task-tagged Y to score")
         return score_table(
             lambda i, xb, yb: self._fn(xb, yb, seed + i), X, Y, self.d_in,
-            self.d_out, fixed_batches(len(X), max_batch), self.device)
+            self.d_y, fixed_batches(len(X), max_batch), self.device,
+            d_mean=self.d_out)
 
 
 def artifact_noise(seed, config, num_samples: int, batch: int,
@@ -311,6 +336,12 @@ def _input_values(program) -> list:
             if node.op == "placeholder" and node.name in names]
 
 
+def _output_values(program) -> list:
+    """The fake tensors of a program's outputs (mean, var, log_density)."""
+    (out,) = [node for node in program.graph.nodes if node.op == "output"]
+    return [node.meta["val"] for node in out.args[0]]
+
+
 def _program_name(platform: str) -> str:
     return f"program_{platform}.b64"
 
@@ -333,6 +364,8 @@ def save_scorer(path: str, exported, *, num_samples: int,
         "polymorphic_batch": poly,
         "d_in": int(x.shape[1]),
         "d_out": int(y.shape[1]),
+        "d_mean": int(_output_values(next(iter(programs.values())))[0]
+                      .shape[1]),
         "num_samples": int(num_samples),
         "raw_units": bool(has_stats),
         "platforms": list(programs),
@@ -424,4 +457,5 @@ class ServingArtifact:
         return score_table(
             lambda i, xb, yb: self._fn(xb, yb, seeds[i]), X, Y,
             self.meta["d_in"], self.meta["d_out"], batches, self.device,
-            depth=depth, transport=transport, transport_in=transport_in)
+            d_mean=self.meta.get("d_mean"), depth=depth,
+            transport=transport, transport_in=transport_in)

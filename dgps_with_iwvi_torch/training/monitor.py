@@ -18,6 +18,7 @@ import torch
 
 from ..models.layers import GPLayerConfig
 from ..ops import kernels, likelihoods
+from ..ops.transforms import positive
 
 
 def hyperparameter_scalars(rest, config, tc=None, step=None) -> dict:
@@ -32,12 +33,26 @@ def hyperparameter_scalars(rest, config, tc=None, step=None) -> dict:
         if not isinstance(cfg, GPLayerConfig):
             continue
         kp = rest["layers"][i]["kernel"]
-        ls = kernels.kernel_lengthscales(kp)
-        out[f"hypers/layer{i}/kernel_variance"] = torch.mean(
-            kernels.kernel_variance(kp))
-        out[f"hypers/layer{i}/lengthscale_mean"] = torch.mean(ls)
-        out[f"hypers/layer{i}/lengthscale_min"] = torch.min(ls)
-        out[f"hypers/layer{i}/lengthscale_max"] = torch.max(ls)
+        # a composite kernel: the first leaf's scalars, as the reference
+        # logs them; a leaf logs the keys its family has
+        if "terms" in kp:
+            kp = kp["terms"][0][0]
+        if "raw_variance" in kp:
+            out[f"hypers/layer{i}/kernel_variance"] = torch.mean(
+                kernels.kernel_variance(kp))
+        if "raw_lengthscales" in kp:
+            ls = kernels.kernel_lengthscales(kp)
+            out[f"hypers/layer{i}/lengthscale_mean"] = torch.mean(ls)
+            out[f"hypers/layer{i}/lengthscale_min"] = torch.min(ls)
+            out[f"hypers/layer{i}/lengthscale_max"] = torch.max(ls)
+        # every other positive leaf parameter (rq alpha, periodic period,
+        # arc-cosine variances, polynomial offset), its mean
+        for k, v in kp.items():
+            name = k.removeprefix("raw_")
+            if k.startswith("raw_") and name not in ("variance",
+                                                     "lengthscales"):
+                out[f"hypers/layer{i}/kernel_{name}"] = torch.mean(
+                    positive(v))
     if config.likelihood == "gaussian":
         out["hypers/likelihood_noise_variance"] = likelihoods.noise_variance(
             rest["likelihood"])

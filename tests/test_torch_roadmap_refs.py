@@ -1,7 +1,7 @@
 """The port's "not ported yet" errors name the ROADMAP queue-1 item that
-ports what they refuse: item 7 (breadth) for other kernel kinds, other
-likelihoods, the non-whitened conditional and KL, hyperparameter priors,
-and the harness's flags and evaluation of those; item 8 (parallel) for the
+ports what they refuse: item 7 (breadth) for the non-whitened conditional
+and KL, hyperparameter priors, and the harness's flags for those and for
+multiscale features; item 8 (parallel) for the
 sharded trainer, ``--shard`` and sharded evaluation, and the serving CLI's
 ``--shard`` over more than one card. The items are written
 out here, so that a rewrite of ROADMAP.md cannot break this test. The
@@ -17,23 +17,13 @@ from dgps_with_iwvi_torch.evaluation import evaluate
 from dgps_with_iwvi_torch.experiments import main, serve
 from dgps_with_iwvi_torch.models import BuildArgs, build_config
 from dgps_with_iwvi_torch.models import dgp, layers
-from dgps_with_iwvi_torch.ops import conditionals, kernels, likelihoods
+from dgps_with_iwvi_torch.ops import conditionals, kernels
 from dgps_with_iwvi_torch.training import TrainConfig, fit
 
 
 def _config():
     return build_config(BuildArgs(configuration="LGG", mode="IW",
                                   num_inducing=4, num_iw_samples=2), 2, 1, 8)
-
-
-def _unknown_kernel_kind():
-    kp = kernels.rbf_params(2, device="cpu")
-    Z = torch.zeros(4, 2)
-    kernels.K(kp, Z, Z, kind="matern32")
-
-
-def _unknown_likelihood():
-    likelihoods.init_params("bernoulli", device="cpu")
 
 
 def _non_whitened_conditional():
@@ -60,11 +50,6 @@ def _sharded_trainer():
         torch.zeros(8, 1), TrainConfig(), mesh=object())
 
 
-def _evaluate_other_likelihood():
-    evaluate(None, _config(), torch.zeros(3, 2), torch.zeros(3, 1), 0,
-             y_std=1.0, likelihood="bernoulli", device="cpu")
-
-
 def _sharded_evaluation():
     evaluate(None, _config(), torch.zeros(3, 2), torch.zeros(3, 1), 0,
              y_std=1.0, mesh=object(), device="cpu")
@@ -80,21 +65,14 @@ def _cli(name, *flags):
 
 
 @pytest.mark.parametrize("raise_site,item", [
-    (_unknown_kernel_kind, 7),
-    (_unknown_likelihood, 7),
     (_non_whitened_conditional, 7),
     (_non_whitened_kl, 7),
     (_hyperparameter_priors, 7),
     (_sharded_trainer, 8),
-    (_evaluate_other_likelihood, 7),
     (_sharded_evaluation, 8),
-    (_cli("likelihood", "--likelihood", "bernoulli"), 7),
-    (_cli("kernel", "--kernel", "matern32"), 7),
     (_cli("prior", "--prior", "noise_variance=lognormal(-2,1)"), 7),
     (_cli("feature", "--feature", "multiscale"), 7),
     (_cli("no_white", "--no_white"), 7),
-    (_cli("gram_fwd", "--gram_fwd_precision", "high"), 7),
-    (_cli("gram_bwd_relax", "--gram_bwd_relax"), 7),
     (_cli("shard", "--shard"), 8),
 ], ids=lambda v: getattr(v, "__name__", str(v)).strip("_"))
 def test_not_ported_errors_name_their_queue_item(raise_site, item):
