@@ -81,7 +81,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    test accuracy above 0.40 and test NLL above the untrained model's),
    then ``experiments.serve.run`` on (b)'s checkpoint: [n, 3] class
    probabilities, one K1 and two K4 per batch, the test split's mean
-   log-density equal to (b)'s test loglik.
+   log-density equal to (b)'s test loglik;
+9. breadth: ``experiments.main.run`` as in phase 8 (300 steps) with (a)
+   ``--feature multiscale`` and two ``--prior`` flags (K1, K2 'epi' and
+   K3 'epi' twice per step, evaluation on K1 and K2, no K4 or K5; the
+   windows moved) and (b) ``--no_white`` (K1, K2 'qvar' and K3 'qvar'
+   twice per step, evaluation on K1 and K2 'qvar'; K2/K3 'qvar' also held
+   to their plain versions in phase 3 at this model's own A = Kuu^-1 Kuf),
+   each with one step at a random q(u) against the plain versions and a
+   test NLL above the untrained model's; ``experiments.serve.run`` on
+   (b)'s checkpoint (one K1 per batch, K2 'qvar' per layer and batch, the
+   test split's mean log-density equal to (b)'s test loglik); then
+   ``predict_f_full_cov`` on (a)'s model (its diagonal equal to
+   ``predict_f``'s variance, symmetric, no eigenvalue below -1e-4 of its
+   largest diagonal), ``predict_f_samples`` and ``predict_y_samples`` on
+   phase 6's checkpoint (one K1 and K4 'sample' and 'infer' per call,
+   sample means within 5 standard errors of the mixture mean) and
+   ``dispatch_sample_observations`` of every family (10^6 draws each,
+   mean and variance within 5 standard errors of the analytic values).
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path), then the card's name and power limit, then
@@ -183,6 +200,16 @@ def bound(bytes_moved: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def chol_library(torch, K, jit):
+    """K1's function in library calls: the factors of K [G, M, M] plus
+    each jitter of the ladder times I, and their inverses."""
+    m = K.shape[-1]
+    Kj = K[None] + jit.reshape(-1, 1, 1, 1) * torch.eye(m, device=K.device)
+    Lc, _ = torch.linalg.cholesky_ex(Kj)
+    return torch.linalg.solve_triangular(
+        Lc, torch.eye(m, device=K.device).expand_as(Lc), upper=False)
 
 
 def _chol_case(torch, chol, linalg, K, jit) -> dict:
@@ -292,23 +319,10 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
     lvl_p = linalg._first_ok_level(chol.chol_inv_plain(
         Kd, linalg._jitter_ladder(1e-6, 6, Kd.dtype, Kd.device))[0])
 
-    def library():
-        Kj = Kuu[None] + jit.reshape(-1, 1, 1, 1) * torch.eye(M, device="cuda")
-        Lc, _ = torch.linalg.cholesky_ex(Kj)
-        return torch.linalg.solve_triangular(
-            Lc, torch.eye(M, device="cuda").expand_as(Lc), upper=False)
-
-    def library_ng():
-        Pj = P[None] + jit_ng.reshape(-1, 1, 1, 1) * torch.eye(
-            M, device="cuda")
-        Lc, _ = torch.linalg.cholesky_ex(Pj)
-        return torch.linalg.solve_triangular(
-            Lc, torch.eye(M, device="cuda").expand_as(Lc), upper=False)
-
     ms = time_ms(torch, lambda: chol.chol_inv(Kuu, jit), 50)
     spd_ms = time_ms(torch, lambda: chol.chol_inv(Kspd, jit), 50)
     plain_ms = time_ms(torch, lambda: chol.chol_inv_plain(Kuu, jit), 20)
-    library_ms = time_ms(torch, library, 20)
+    library_ms = time_ms(torch, lambda: chol_library(torch, Kuu, jit), 20)
     floor = launch_floor(torch)
     # the function: G factors and their inverses (K in, L and Linv out,
     # the ladder's jitters in); Cholesky M^3/3 + triangular inverse M^3/3
@@ -320,7 +334,8 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
         shape=f"natgrad P [1,{M},{M}] f32 x {len(jit_ng)} jitter levels",
         ms=time_ms(torch, lambda: chol.chol_inv(P, jit_ng), 50),
         plain_ms=time_ms(torch, lambda: chol.chol_inv_plain(P, jit_ng), 20),
-        library_ms=time_ms(torch, library_ng, 20), bound_ms=ng_b_ms,
+        library_ms=time_ms(torch, lambda: chol_library(torch, P, jit_ng),
+                           20), bound_ms=ng_b_ms,
         bound_by=ng_b_by)
     return {
         "name": "chol_inv", "route": "cuda",
@@ -357,6 +372,7 @@ EPI_CASES = [
     ("_ps_kernel: cov D=1, sumsq", 1, True, "ps"),
     ("q-variance only (_qvar_kernel): root D=8", 8, False, "qvar"),
     ("q-variance only (_qvar_kernel): cov D=1", 1, True, "qvar"),
+    ("q-variance only (_qvar_kernel): root D=1", 1, False, "qvar"),
 ]
 K2_REPLACES = {"epi": "dgps_with_iwvi_tpu/ops/pallas/qvar.py:429",
                "ps": "dgps_with_iwvi_tpu/ops/pallas/qvar.py:437",
@@ -432,6 +448,12 @@ def _epi_case(torch, qvar, gen, label, Lx, N, D, cov, form) -> dict:
     """K2 against its plain version on A [Lx, M, N], W [D, M, M]: errors,
     times and the bound on the same inputs."""
     A, W, q_mu = _epi_inputs(torch, gen, Lx, D, N, cov)
+    return _epi_case_on(torch, qvar, label, A, W, q_mu, cov, form)
+
+
+def _epi_case_on(torch, qvar, label, A, W, q_mu, cov, form) -> dict:
+    """_epi_case on given inputs A [Lx, M, N], W [D, M, M]."""
+    Lx, N, D = A.shape[0], A.shape[-1], W.shape[0]
     errs, rels = _epi_check(torch, qvar, label, A, W, q_mu, cov, form)
     iters = 10 if Lx * N >= 1 << 18 else 50
     ms = time_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
@@ -478,14 +500,95 @@ EPI_EDGE_CASES = [
 ]
 
 
-def epilogue_phase(torch, hopper, gen) -> list:
+def non_white_qvar_inputs(torch) -> dict:
+    """{"train": [(label, A, W, cov)], "eval": [...]}: the q-variance
+    inputs of both GP layers of phase 9(b)'s model (LGG --no_white, IW
+    K=20, M=128, B=512, natgrad final, on the kin8nm surrogate, built from
+    the harness's seed) at a random q(u), as ``ops.conditionals._q_variance``
+    receives them on the plain versions: A = Kuu^-1 Kuf, which carries
+    Kuu's condition number. "train": one training step, A [20,128,512]
+    with the inner layer's root W (D=8) and the final layer's natgrad
+    covariance (D=1). "eval": evaluation's one chunk (and each served
+    batch) of the 820 test rows at S=100, A [100,128,820], where both
+    layers hold a root (D=8 and D=1: natgrad's S goes back to a q_sqrt
+    before evaluation)."""
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.experiments.main import seeds
+    from dgps_with_iwvi_torch.models import (BuildArgs, build_model,
+                                             predict_y_and_log_density)
+    from dgps_with_iwvi_torch.ops import conditionals
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        data = get_regression_data("kin8nm", 0,
+                                   data_dir=os.path.join(tmp, "none"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    X = torch.as_tensor(data.X_train).cuda()
+    Y = torch.as_tensor(data.Y_train).cuda()
+    config, params = build_model(
+        seeds(0)[0], BuildArgs(configuration="LGG", mode="IW",
+                               num_inducing=M, num_iw_samples=L_TRAIN,
+                               white=False), X, Y, device="cuda")
+    random_q(torch, params)
+    tc = train.TrainConfig(natgrad="final", minibatch_size=B_TRAIN)
+    state = train.make_trainer(config, tc)[0](params)
+    captured, real = [], conditionals._q_variance
+
+    def record(A, q_sqrt, q_S, var_precision):
+        W, cov = ((q_S, True) if q_S is not None
+                  else (torch.tril(q_sqrt), False))
+        captured.append((A.detach().clone(), W.detach().clone(), cov))
+        return real(A, q_sqrt, q_S, var_precision)
+
+    conditionals._q_variance = record
+    X_test = torch.as_tensor(data.X_test).cuda()
+    Y_test = torch.as_tensor(data.Y_test).cuda()
+    try:
+        with build.plain_versions():
+            train.loss_and_grads(config, tc, state, X, Y,
+                                 torch.Generator(device="cuda").manual_seed(3))
+            with torch.no_grad():
+                predict_y_and_log_density(
+                    params, config, X_test, Y_test,
+                    torch.Generator(device="cuda").manual_seed(4),
+                    HARNESS_SAMPLES)
+    finally:
+        conditionals._q_variance = real
+    want = {"train": [("non-whitened inner layer: root D=8, A = Kuu^-1 Kuf",
+                       (L_TRAIN, M, B_TRAIN, 8, M, M, False)),
+                      ("non-whitened final layer (natgrad): cov D=1, "
+                       "A = Kuu^-1 Kuf", (L_TRAIN, M, B_TRAIN, 1, M, M, True))],
+            "eval": [("non-whitened evaluation inner layer: root D=8, "
+                      "820 test rows x S=100",
+                      (HARNESS_SAMPLES, M, HARNESS_TEST_ROWS, 8, M, M, False)),
+                     ("non-whitened evaluation final layer: root D=1, "
+                      "820 test rows x S=100",
+                      (HARNESS_SAMPLES, M, HARNESS_TEST_ROWS, 1, M, M, False))]}
+    shapes = [tuple(A.shape) + tuple(W.shape) + (cov,)
+              for A, W, cov in captured]
+    if shapes != [sh for rows in want.values() for _, sh in rows]:
+        fail(f"non-whitened model: q-variance inputs of shapes {shapes}")
+    it = iter(captured)
+    return {k: [(lb,) + next(it) for lb, _ in rows]
+            for k, rows in want.items()}
+
+
+def epilogue_phase(torch, hopper, gen, non_white) -> list:
     """K2 against its plain version at the serving shape S=100, B=8192,
     M=128 (errors and times on the same inputs), at the training step's
-    shapes A [20,128,512] and [20,128,8192], on a ragged N and at the edge
-    cases of EPI_EDGE_CASES; two launches bitwise equal; one kernels-line
-    row per variant."""
+    shapes A [20,128,512] and [20,128,8192], the q-variance-only variant
+    at a non-whitened model's own A in a training step and in evaluation
+    (``non_white_qvar_inputs``, its main path), on a ragged N and at the edge cases of EPI_EDGE_CASES; two
+    launches bitwise equal; one kernels-line row per variant."""
     qvar = hopper.qvar
     cases = {"epi": [], "ps": [], "qvar": []}
+    for label, A, W, cov in non_white["train"] + non_white["eval"]:
+        cases["qvar"].append(_epi_case_on(torch, qvar, label, A, W, None, cov,
+                                          "qvar"))
+        cases["qvar"][-1]["max_abs_A"] = float(A.abs().max())
     for label, D, cov, form in EPI_CASES:
         cases[form].append(_epi_case(torch, qvar, gen, label, S_SERVE,
                                      B_SERVE, D, cov, form))
@@ -595,9 +698,11 @@ def _bwd_bound(form, L, m, n, d):
                  f32_ops=(3 * L * m * n if ssq else 0))
 
 
-def epilogue_bwd_phase(torch, hopper, gen) -> tuple:
+def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
     """K3 against its plain version in every form at the training shapes
-    A [20,128,512] and [20,128,8192], at M=100, and its determinism."""
+    A [20,128,512] and [20,128,8192], the q-variance-only form first at a
+    non-whitened step's own A (``non_white_qvar_inputs``, its main path),
+    at M=100, and its determinism."""
     qvar = hopper.qvar
     names = {"epi": ("dA", "dW", "dq_mu"), "ps": ("dA", "dW"),
              "qvar": ("dA", "dW")}
@@ -609,6 +714,28 @@ def epilogue_bwd_phase(torch, hopper, gen) -> tuple:
     # measured 1.8e-4 of max|plain| at N=8192 on an H100
     tol = {"dA": 1e-4, "dW": 1e-3, "dq_mu": 1e-3}
     cases = {"epi": [], "ps": [], "qvar": []}
+    for label, A, W, cov in non_white["train"]:
+        d = W.shape[0]
+        g_qv = torch.randn((L_TRAIN, d, B_TRAIN), generator=gen,
+                           device="cuda")
+        args = (A, W, None, g_qv, None, None)
+        got = _bwd_call(qvar, "qvar", *args, cov, plain=False)
+        ref = _bwd_call(qvar, "qvar", *args, cov, plain=True)
+        errs, rels = _compare(torch, f"epilogue_bwd [{label}]", got, ref,
+                              names["qvar"], tol)
+        b_ms, b_by = _bwd_bound("qvar", L_TRAIN, M, B_TRAIN, d)
+        cases["qvar"].append({
+            "case": label, "shape": f"A [{L_TRAIN},{M},{B_TRAIN}], W "
+            f"[{d},{M},{M}]", "max_abs_err": max(errs.values()),
+            "max_rel_err": max(rels.values()), "errs": errs,
+            "max_abs_A": float(A.abs().max()),
+            "ms": time_ms(torch, lambda: _bwd_call(qvar, "qvar", *args, cov,
+                                                   False), 20),
+            "device_ms": device_ms(torch, lambda: _bwd_call(
+                qvar, "qvar", *args, cov, False)),
+            "plain_ms": time_ms(torch, lambda: _bwd_call(
+                qvar, "qvar", *args, cov, True), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by})
     for n in (B_TRAIN, B_BIG):
         for label, form, d, cov in BWD_FORMS:
             args = _bwd_inputs(torch, gen, L_TRAIN, M, n, d, cov)
@@ -2050,6 +2177,387 @@ def families_phase(torch, card: str, tmp: str) -> dict:
     return rec
 
 
+BREADTH_RUNS = [
+    # (label, flags): (a) multiscale windows with two priors, whitened, on
+    # the K2 route (no K4, no K5: both assume plain inducing points);
+    # (b) the non-whitened parameterization, whose q-variance takes K2/K3's
+    # q-variance-only variant
+    ("multiscale", ["--feature", "multiscale", "--prior",
+                    "kernel_variance=gamma(2,3)", "--prior",
+                    "noise_variance=lognormal(-2,1)"]),
+    ("no_white", ["--no_white"]),
+]
+FULL_COV_ROWS, FULL_COV_SAMPLES = 512, 10
+OBS_DRAWS = 1_000_000
+OBS_F, OBS_F_CLASSES = 0.3, (0.2, -0.5, 1.0)
+
+
+def _restore(torch, tmp, ckpt):
+    """(config, params) of the latest checkpoint in `ckpt`, rebuilt from
+    its build_args.json as dgp-serve-torch does (one K1 launch: the
+    canonical form of the natgrad block)."""
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.experiments import serve
+
+    args = serve.parse_args(["--dataset", "kin8nm", "--data_dir",
+                             os.path.join(tmp, "data"), "--ckpt_dir", ckpt])
+    data = get_regression_data("kin8nm", 0, data_dir=args.data_dir)
+    config, params, _ = serve._restore(args, data, torch.device("cuda"))
+    return config, params, data
+
+
+def _layer_noise(torch, config, S, B, gen):
+    """Per-layer standard normals of a propagate (``models.dgp.propagate``
+    ``eps``): [S, B, d_w] for a latent layer, [S, B, d_out] for an inner
+    GP layer, none for the final layer."""
+    from dgps_with_iwvi_torch.models.layers import LVLayerConfig
+
+    return [None if getattr(c, "final", False) else torch.randn(
+        (S, B, c.d_w if isinstance(c, LVLayerConfig) else c.d_out),
+        generator=gen, device="cuda") for c in config.layers]
+
+
+def _full_cov_check(torch, config, params, X) -> dict:
+    """predict_f_full_cov at FULL_COV_ROWS rows and S=FULL_COV_SAMPLES on
+    the card: its diagonal against predict_f's variance on the same noise,
+    within 1e-4 of max|var| at the model's classes (the q-variance at bf16
+    through K2, the solve path at bf16x3) and within 1e-5 with both at
+    'highest', the full covariance's own class, where only the order of
+    f32 sums differs; symmetric (1e-6 of the largest diagonal), its
+    smallest eigenvalue >= -1e-4 of the largest diagonal."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.models import predict_f, predict_f_full_cov
+
+    S = FULL_COV_SAMPLES
+    eps = _layer_noise(torch, config, S, X.shape[0],
+                       torch.Generator(device="cuda").manual_seed(5))
+    exact = dataclasses.replace(config, var_precision="highest",
+                                solve_precision="highest")
+    with torch.no_grad():
+        mean, cov = predict_f_full_cov(params, exact, X, None, S, eps=eps)
+        fmean, fvar = predict_f(params, exact, X, None, S, eps=eps)
+        _, fvar_model = predict_f(params, config, X, None, S, eps=eps)
+        ms = time_ms(torch, lambda: predict_f_full_cov(params, config, X,
+                                                       None, S, eps=eps), 3)
+    want = (S, fmean.shape[-1], X.shape[0], X.shape[0])
+    if tuple(cov.shape) != want or not bool(torch.isfinite(cov).all()):
+        fail(f"breadth full cov: shape {tuple(cov.shape)} (want {want}) or "
+             "non-finite")
+    diag = torch.diagonal(cov, dim1=-2, dim2=-1).transpose(-1, -2)
+    scale = float(fvar.abs().max())
+    diag_err = max_err(diag, fvar)
+    model_err = max_err(diag, fvar_model)
+    mean_err = max_err(mean, fmean)
+    top = float(diag.abs().max())
+    asym = max_err(cov, cov.transpose(-1, -2))
+    eig_min = float(torch.linalg.eigvalsh(cov.double()).min())
+    if not (diag_err <= 1e-5 * scale and model_err <= 1e-4 * scale
+            and asym <= 1e-6 * top and eig_min >= -1e-4 * top):
+        fail(f"breadth full cov: diagonal vs predict_f's variance "
+             f"{diag_err} at 'highest' (limit {1e-5 * scale}) and "
+             f"{model_err} at the model's classes (limit {1e-4 * scale}), "
+             f"asymmetry {asym} (limit {1e-6 * top}), smallest eigenvalue "
+             f"{eig_min} (limit {-1e-4 * top})")
+    return {"shape": list(cov.shape), "diag_vs_predict_f_var": diag_err,
+            "max_var": scale, "mean_vs_predict_f": mean_err,
+            "diag_vs_predict_f_var_at_model_classes": model_err,
+            "asymmetry": asym, "min_eigenvalue": eig_min,
+            "max_diag": top, "ms": ms}
+
+
+def _sampling_check(torch, build, config, params, X) -> dict:
+    """predict_f_samples and predict_y_samples at S=HARNESS_SAMPLES on the
+    test rows X of a whitened points model: one K1, K4 'sample' and K4
+    'infer' per call. The function draws equal predict_f's
+    fmean + safe_sqrt(fvar) z on the same noise at f32 rounding (1e-6 of
+    the largest |draw|); both draws' sample means are within 5 standard
+    errors of the mixture mean at every row."""
+    from dgps_with_iwvi_torch.models import (predict_f, predict_f_samples,
+                                             predict_y_samples)
+    from dgps_with_iwvi_torch.ops import conditionals, likelihoods
+
+    S, B = HARNESS_SAMPLES, X.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    eps = _layer_noise(torch, config, S, B, gen)
+    z = torch.randn((S, B, 1), generator=gen, device="cuda")
+    with torch.no_grad():
+        build.reset_launches()
+        fs = predict_f_samples(params, config, X, None, S, eps=eps,
+                               sample_eps=z)
+        ys = predict_y_samples(params, config, X, gen, S, eps=eps,
+                               sample_eps=z)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        fmean, fvar = predict_f(params, config, X, None, S, eps=eps)
+        s2 = likelihoods.noise_variance(params["likelihood"])
+        ms = time_ms(torch, lambda: predict_y_samples(
+            params, config, X, gen, S, eps=eps, sample_eps=z), 5)
+    want = {"chol_inv": 2, "serve_cond:sample": 2, "serve_cond:infer": 2}
+    if counts != want:
+        fail(f"breadth predict: launches {counts}, want {want}")
+    want_fs = fmean + conditionals.safe_sqrt(fvar) * z
+    f_err = max_err(fs, want_fs)
+    f_tol = 1e-6 * float(want_fs.abs().max())
+    mix = fmean.mean(0)
+    z_f = float(((fs.mean(0) - mix).abs()
+                 / (fvar.sum(0).sqrt() / S)).max())
+    z_y = float(((ys.mean(0) - mix).abs()
+                 / ((fvar + s2).sum(0).sqrt() / S)).max())
+    if not (f_err <= f_tol and z_f < 5.0 and z_y < 5.0
+            and bool(torch.isfinite(ys).all())):
+        fail(f"breadth predict: function draws {f_err} from fmean + "
+             f"sqrt(fvar) z (limit {f_tol}); sample means {z_f} (f) and "
+             f"{z_y} (y) standard errors from the mixture mean at the "
+             "worst row")
+    return {"launches": counts, "f_draws_vs_moments": f_err,
+            "f_draws_limit": f_tol, "max_z_f": z_f, "max_z_y": z_y,
+            "rows": B, "samples": S, "predict_y_samples_ms": ms}
+
+
+def _obs_moments(kind, p, likelihoods):
+    """(mean, variance) of one observation of `kind` at f = OBS_F
+    (OBS_F_CLASSES for the class families) from the family's parameters
+    `p` (floats)."""
+    f = OBS_F
+    pos = lambda r: 1e-6 + math.log1p(math.exp(r))   # noqa: E731
+    if kind == "gaussian":
+        return f, pos(p["raw_noise_variance"])
+    if kind == "bernoulli":
+        q = 0.5 * math.erfc(-f / math.sqrt(2.0))
+        return q, q * (1 - q)
+    if kind == "student_t":
+        s, df = pos(p["raw_scale"]), p["df"]
+        return f, s * s * df / (df - 2.0)
+    if kind in ("poisson", "exponential"):
+        return math.exp(f), math.exp(f) * (1.0 if kind == "poisson"
+                                           else math.exp(f))
+    if kind == "gamma":
+        k = pos(p["raw_shape"])
+        return k * math.exp(f), k * math.exp(2 * f)
+    if kind == "beta":
+        s, mu = pos(p["raw_scale"]), 1.0 / (1.0 + math.exp(-f))
+        return mu, mu * (1 - mu) / (s + 1.0)
+    if kind == "ordinal":
+        cdf = [0.5 * math.erfc(-(e - f) / math.sqrt(2.0))
+               for e in p["bin_edges"]]
+        probs = np.diff([0.0] + cdf + [1.0])
+    elif kind == "softmax":
+        probs = np.exp(OBS_F_CLASSES) / np.sum(np.exp(OBS_F_CLASSES))
+    else:
+        C, eps = len(OBS_F_CLASSES), likelihoods.ROBUSTMAX_EPS
+        probs = np.full(C, eps / (C - 1))
+        probs[int(np.argmax(OBS_F_CLASSES))] = 1 - eps
+    k = np.arange(len(probs))
+    mean = float(np.sum(k * probs))
+    return mean, float(np.sum(np.square(k - mean) * probs))
+
+
+def _observation_draws(torch) -> dict:
+    """``dispatch_sample_observations`` of every family on the card,
+    OBS_DRAWS draws each from a generator: mean and variance within 5
+    standard errors of the analytic values (the variance's from the
+    sample's fourth central moment; student_t at df=10, where that moment
+    is finite); switched_gaussian raises, as in the reference."""
+    from dgps_with_iwvi_torch.ops import likelihoods
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for kind in likelihoods.LIKELIHOOD_KINDS:
+        kw = ({"df": 10.0} if kind == "student_t" else
+              {"num_classes": 4} if kind == "ordinal" else
+              {"num_tasks": 2} if kind == "switched_gaussian" else {})
+        p = likelihoods.init_params(kind, 0.2, device="cuda", **kw)
+        if kind in ("multiclass", "softmax"):
+            fs = torch.tensor(OBS_F_CLASSES, device="cuda").expand(
+                OBS_DRAWS, 3).contiguous()
+        else:
+            fs = torch.full((OBS_DRAWS, 1), OBS_F, device="cuda")
+        if kind == "switched_gaussian":
+            try:
+                likelihoods.dispatch_sample_observations(p, fs, gen,
+                                                         kind=kind)
+            except ValueError:
+                out[kind] = "raises ValueError, as in the reference"
+                continue
+            fail("breadth draws: switched_gaussian sampling did not raise")
+        y = likelihoods.dispatch_sample_observations(p, fs, gen, kind=kind)
+        ms = time_ms(torch, lambda: likelihoods.dispatch_sample_observations(
+            p, fs, gen, kind=kind), 5)
+        x = y.double().flatten()
+        c = x - x.mean()
+        s2, m4 = float((c * c).mean()), float((c ** 4).mean())
+        mean, var = _obs_moments(kind, {k: v.tolist() for k, v in p.items()},
+                                 likelihoods)
+        z_mean = abs(float(x.mean()) - mean) / math.sqrt(var / x.numel())
+        z_var = abs(s2 - var) / math.sqrt(max(m4 - s2 * s2, 1e-300)
+                                          / x.numel())
+        if not (y.shape == (OBS_DRAWS, 1) and z_mean < 5.0 and z_var < 5.0):
+            fail(f"breadth draws ({kind}): shape {tuple(y.shape)}, mean "
+                 f"{float(x.mean())} vs {mean} ({z_mean:.2f} SE), variance "
+                 f"{s2} vs {var} ({z_var:.2f} SE)")
+        out[kind] = {"mean": float(x.mean()), "analytic_mean": mean,
+                     "var": s2, "analytic_var": var, "z_mean": z_mean,
+                     "z_var": z_var, "ms": ms}
+    return out
+
+
+def breadth_phase(torch, card: str, tmp: str) -> dict:
+    """ROADMAP item 7's second half through ``experiments.main.run`` on the
+    kin8nm surrogate, as phase 8 runs it (LGG IW K=20 M=128 B=512, natgrad
+    final, FAMILY_STEPS steps, S=100 at evaluation):
+
+    Each run first holds K1 to its plain version on the model's stacked
+    Kuu (the window integrals for (a)), timed.
+
+    (a) multiscale windows with a gamma prior on the kernel variances and
+    a lognormal one on the noise: one step at a random q(u) against the
+    plain versions on the card (``_grad_agreement``); K1, K2 'epi' and K3
+    'epi' twice per step, evaluation and the final ELBO on K1 and K2
+    'epi' (no K4, no K5); the windows moved in training; test NLL above
+    the untrained model's.
+
+    (b) ``--no_white``: the same step check; K1, K2 'qvar' and K3 'qvar'
+    twice per step ('epi' none), evaluation on K1 and K2 'qvar'; test NLL
+    above the untrained model's. Then ``experiments.serve.run`` on (b)'s
+    checkpoint: one K1 per batch and one K2 'qvar' per GP layer and batch
+    (the warm-up included), one K1 for the restored q(u); the test
+    split's mean log-density within 1e-6 of (b)'s test loglik.
+
+    (c) the predictives: ``predict_f_full_cov`` on (a)'s model
+    (``_full_cov_check``); ``predict_f_samples`` and ``predict_y_samples``
+    on phase 6's step-400 checkpoint (``_sampling_check``); the
+    observation draws of every family (``_observation_draws``)."""
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.experiments import main as harness
+    from dgps_with_iwvi_torch.experiments import serve
+    from dgps_with_iwvi_torch.ops import hopper, linalg
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    data_dir = os.path.join(tmp, "data")
+    rec = {}
+    for label, flags in BREADTH_RUNS:
+        ckpt = os.path.join(tmp, f"breadth_{label}")
+        args = harness.parse_args(FAMILY_ARGS + flags + [
+            "--data_dir", data_dir, "--results_db",
+            os.path.join(tmp, "breadth.db"), "--ckpt_dir", ckpt,
+            "--ckpt_every", str(FAMILY_STEPS)])
+        exp = harness.setup(args)
+        n_test = exp.data.X_test.shape[0]
+        chunks = -(-n_test // EVAL_BATCH)
+        untrained = harness.evaluate_model(args, exp, exp.params)
+        out = {"run": "experiments.main.run " + " ".join(FAMILY_ARGS + flags),
+               "n_test": n_test}
+        # K1 on the step's stacked Kuu: the window integrals for (a)
+        Kuu = served_kuu(torch, exp.config, exp.params)
+        ladder = linalg._jitter_ladder(exp.config.jitter,
+                                       exp.config.jitter_tries,
+                                       torch.float32, "cuda")
+        out["k1_kuu"] = dict(
+            _chol_case(torch, hopper.chol, linalg, Kuu, ladder),
+            ms=time_ms(torch, lambda: hopper.chol.chol_inv(Kuu, ladder), 50),
+            plain_ms=time_ms(torch, lambda: hopper.chol.chol_inv_plain(
+                Kuu, ladder), 5, 1),
+            library_ms=time_ms(torch, lambda: chol_library(torch, Kuu,
+                                                           ladder), 20))
+        params = dict(exp.params, layers=[dict(lp) for lp in
+                                          exp.params["layers"]])
+        random_q(torch, params)
+        tc = train.TrainConfig(lr=args.lr, gamma=args.gamma,
+                               natgrad=args.natgrad,
+                               minibatch_size=args.minibatch_size)
+        state = train.make_trainer(exp.config, tc)[0](params)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        B = args.minibatch_size
+        idx = torch.randint(0, exp.X.shape[0], (B,), generator=g,
+                            device="cuda")
+        eps = [torch.randn((L_TRAIN, B, 1), generator=g, device="cuda"),
+               torch.randn((L_TRAIN, B, exp.config.layers[1].d_out),
+                           generator=g, device="cuda"), None]
+        out["vs_plain_on_card"] = _grad_agreement(
+            torch, train, exp.config, tc, state, exp.X, exp.Y, idx, eps)
+        scales0 = [lp["raw_Z_scales"].clone() for lp in exp.params["layers"]
+                   if "raw_Z_scales" in lp]
+        del exp, params, state
+
+        S = FAMILY_STEPS
+        form = "epi" if label == "multiscale" else "qvar"
+        want = {"chol_inv": 2 * S + 1 + chunks + 1,
+                f"epilogue:{form}": 2 * S + 2 * (chunks + 1),
+                f"epilogue_bwd:{form}": 2 * S}
+        build.reset_launches()
+        row = harness.run(args)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != want:
+            fail(f"breadth ({label}): launches {counts}, want {want} ({S} "
+                 f"steps, {chunks} test chunk(s))")
+        if not all(math.isfinite(row[k]) for k in ("test_loglik", "elbo")):
+            fail(f"breadth ({label}): test loglik {row['test_loglik']} or "
+                 f"ELBO {row['elbo']} is not finite")
+        if not row["test_loglik"] > untrained["test_loglik"]:
+            fail(f"breadth ({label}): test loglik {row['test_loglik']} is "
+                 f"not above the untrained model's "
+                 f"{untrained['test_loglik']}")
+        if scales0:
+            trained = [t for n, t in _checkpoint_leaves(
+                os.path.join(ckpt, f"step_{S}.pt"), torch)
+                if n.endswith("raw_Z_scales")]
+            moved = max(float((t.cuda() - t0).abs().max())
+                        for t, t0 in zip(trained, scales0))
+            if len(trained) != len(scales0) or not moved > 1e-3:
+                fail(f"breadth ({label}): the multiscale windows moved by "
+                     f"{moved} in training ({len(trained)} of "
+                     f"{len(scales0)} layers found)")
+            out["raw_Z_scales_max_move"] = moved
+        out.update({
+            "test_loglik": row["test_loglik"],
+            "untrained_test_loglik": untrained["test_loglik"],
+            "test_rmse": row["test_rmse"], "elbo": row["elbo"],
+            "steps_per_s": row["steps_per_sec"],
+            "train_time_s": row["train_time_s"], "launches": counts})
+        print(f"breadth {label} ({' '.join(flags)}): {S} steps at "
+              f"{row['steps_per_sec']:.1f} steps/s, test_loglik "
+              f"{row['test_loglik']:.4f} (untrained "
+              f"{untrained['test_loglik']:.4f}); launches "
+              f"{json.dumps(counts)}; on {card}")
+        rec[label] = out
+
+    # (b)'s checkpoint through the serve CLI
+    pred = os.path.join(tmp, "breadth_no_white.npz")
+    res, counts = _serve_counts(build, lambda: serve.run(serve.parse_args([
+        "--dataset", "kin8nm", "--data_dir", data_dir, "--ckpt_dir",
+        os.path.join(tmp, "breadth_no_white"), "--num_predict_samples",
+        str(HARNESS_SAMPLES), "--output", pred])))
+    want = {"chol_inv": 3, "epilogue:qvar": 4}
+    if counts != want:
+        fail(f"breadth serve: launches {counts}, want {want}")
+    with np.load(pred) as z:
+        ld = z["log_density"]
+    ld_mean = float(np.mean(ld.astype(np.float64)))
+    ref = rec["no_white"]["test_loglik"]
+    gap = abs(ld_mean - ref)
+    if not gap <= 1e-6 * max(1.0, abs(ref)):
+        fail(f"breadth serve: mean log-density {ld_mean} against the run's "
+             f"test loglik {ref}")
+    rec["serve"] = {"test_mean_log_density": ld_mean, "test_loglik_gap": gap,
+                    "points_per_s": res["points_per_sec"],
+                    "launches": counts}
+
+    # (c) the predictives
+    config, params, data = _restore(torch, tmp,
+                                    os.path.join(tmp, "breadth_multiscale"))
+    X = torch.as_tensor(data.X_test[:FULL_COV_ROWS]).cuda()
+    rec["full_cov"] = _full_cov_check(torch, config, params, X)
+    config, params, data = _restore(torch, tmp, os.path.join(tmp, "a"))
+    rec["sampling"] = _sampling_check(torch, build, config, params,
+                                      torch.as_tensor(data.X_test).cuda())
+    rec["observation_draws"] = _observation_draws(torch)
+    print(f"breadth serve: (b)'s test split, mean log-density {ld_mean:.6f} "
+          f"vs the run's {ref:.6f}; launches {json.dumps(counts)}; "
+          f"full cov {json.dumps(rec['full_cov'])}; sampling "
+          f"{json.dumps(rec['sampling'])}; on {card}")
+    return rec
+
+
 AB_ORDER = ("parent", "change", "change", "parent")
 AB_COND_CASES = [
     # (label, N, d_in, M, D, kernel, sample, residuals, iterations)
@@ -2321,8 +2829,12 @@ def main() -> int:
                     served_kuu(torch, config, model[3]), config.jitter,
                     config.jitter_tries,
                     natgrad_precision(torch, model[3], gen))
-    k2 = epilogue_phase(torch, hopper, gen)
-    k3, rec["epilogue_bwd_checks"] = epilogue_bwd_phase(torch, hopper, gen)
+    non_white = non_white_qvar_inputs(torch)
+    k2 = epilogue_phase(torch, hopper, gen, non_white)
+    k3, rec["epilogue_bwd_checks"] = epilogue_bwd_phase(torch, hopper, gen,
+                                                        non_white)
+    del non_white
+    torch.cuda.empty_cache()
     k45, rec["fused_checks"] = fused_phase(torch, hopper, gen)
     rec["slice"] = slice_phase(torch, model, rec, opts.profile)
     rec["pallas_serving"] = pallas_serving_phase(torch, model, opts.profile)
@@ -2335,6 +2847,10 @@ def main() -> int:
         rec["families"] = families_phase(torch, card, tmp)
         rec["families"]["phase_s"] = time.perf_counter() - t0
         print(f"families: phase 8 took {rec['families']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["breadth"] = breadth_phase(torch, card, tmp)
+        rec["breadth"]["phase_s"] = time.perf_counter() - t0
+        print(f"breadth: phase 9 took {rec['breadth']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -2361,7 +2877,11 @@ def main() -> int:
                  rec["families"]["regression"]["launches"],
              "families_multiclass":
                  rec["families"]["multiclass"]["launches"],
-             "families_serve": rec["families"]["serve"]["launches"]}
+             "families_serve": rec["families"]["serve"]["launches"],
+             "breadth_multiscale": rec["breadth"]["multiscale"]["launches"],
+             "breadth_no_white": rec["breadth"]["no_white"]["launches"],
+             "breadth_serve": rec["breadth"]["serve"]["launches"],
+             "breadth_predict": rec["breadth"]["sampling"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -2383,6 +2903,7 @@ def main() -> int:
     print("harness: " + json.dumps(rec["harness"]))
     print("serve CLI: " + json.dumps(rec["serve_cli"]))
     print("families: " + json.dumps(rec["families"]))
+    print("breadth: " + json.dumps(rec["breadth"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

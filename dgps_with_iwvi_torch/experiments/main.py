@@ -4,14 +4,14 @@
 The reference's flag surface (dataset, split, configuration string of G/L
 tokens, mode VI/IW, M inducing points, K importance samples, minibatch
 size, iterations, Adam lr, natgrad gamma, the kernel and likelihood
-families, the gram's precision switches), plus ``--device``, wired to the
-port: data -> build_model (k-means Z init) -> natgrad + Adam training with
-the monitor and checkpoints -> mixture NLL / RMSE (and accuracy)
-evaluation -> one row of the bayesian_benchmarks sqlite schema. Runs on
-the card unless ``--device cpu`` is given. Flags of the reference that
-the port cannot serve yet (``--prior``, ``--feature multiscale``,
-``--no_white``, ``--shard``) raise NotImplementedError, naming their
-ROADMAP item, before any work.
+families, the gram's precision switches, hyperparameter priors, the
+inducing-feature family and the non-whitened parameterization), plus
+``--device``, wired to the port: data -> build_model (k-means Z init) ->
+natgrad + Adam training with the monitor and checkpoints -> mixture NLL /
+RMSE (and accuracy) evaluation -> one row of the bayesian_benchmarks
+sqlite schema. Runs on the card unless ``--device cpu`` is given.
+``--shard``, which the port cannot serve yet, raises NotImplementedError,
+naming its ROADMAP item, before any work.
 
 Example (the paper's flagship configuration):
     python -m dgps_with_iwvi_torch.experiments.main --dataset kin8nm \\
@@ -36,7 +36,8 @@ from dgps_with_iwvi_torch.data import (Dataset, get_classification_data,
 from dgps_with_iwvi_torch.device import resolve_device
 from dgps_with_iwvi_torch.evaluation import Database, evaluate
 from dgps_with_iwvi_torch.models import (BuildArgs, DGPConfig, build_model,
-                                         elbo, save_build_args)
+                                         elbo, parse_prior_flag,
+                                         save_build_args)
 from dgps_with_iwvi_torch.ops import kernels
 from dgps_with_iwvi_torch.training import TrainConfig, fit, make_trainer
 from dgps_with_iwvi_torch.training.checkpoint import (latest_step,
@@ -113,19 +114,26 @@ def parse_args(argv=None):
                         "transposed (gradient) dots "
                         "(kernels.GRAM_BWD_RELAX)")
     p.add_argument("--prior", action="append", default=[],
-                   help="hyperparameter prior target=kind(a,b); not ported")
+                   help="hyperparameter prior, repeatable: target=kind(a,b) "
+                        "with target in {kernel_variance, lengthscales, "
+                        "noise_variance} (or a parameter-path suffix) and "
+                        "kind in {gamma, lognormal, gaussian}; e.g. "
+                        "--prior 'noise_variance=lognormal(-2,1)'")
     p.add_argument("--mean_function", default="auto",
                    choices=["auto", "zero", "skip", "constant", "linear"],
                    help="GP-layer mean function ('auto': zero on the final "
                         "layer, fixed identity skips between inner layers)")
     p.add_argument("--feature", default="points",
                    choices=["points", "multiscale"],
-                   help="inducing-feature family; the port has 'points'")
-    p.add_argument("--feature_init_scale", type=float, default=0.1)
+                   help="inducing-feature family (ops/features.py): "
+                        "'multiscale' gives every inducing point a "
+                        "trainable Gaussian window (RBF kernel only)")
+    p.add_argument("--feature_init_scale", type=float, default=0.1,
+                   help="multiscale window width at initialization")
     p.add_argument("--non_amortized", action="store_true",
                    help="per-datapoint q(w) instead of the encoder (small N)")
     p.add_argument("--no_white", action="store_true",
-                   help="non-whitened q(u); not ported")
+                   help="non-whitened q(u) parameterization")
     p.add_argument("--q_diag", action="store_true",
                    help="diagonal q(u) covariance")
     p.add_argument("--shard", action="store_true",
@@ -159,16 +167,6 @@ def parse_args(argv=None):
 def check_supported(args) -> None:
     """Raise for a flag the port cannot serve yet, naming the ROADMAP
     item that ports it, before any work."""
-    breadth = []
-    if args.prior:
-        breadth.append("--prior")
-    if args.feature != "points":
-        breadth.append(f"--feature {args.feature}")
-    if args.no_white:
-        breadth.append("--no_white")
-    if breadth:
-        raise NotImplementedError(
-            f"{', '.join(breadth)}: not ported yet (ROADMAP queue 7)")
     if args.shard:
         raise NotImplementedError(
             "--shard: the sharded trainer is not ported yet (ROADMAP "
@@ -246,7 +244,10 @@ def setup(args) -> Experiment:
         amortized=not args.non_amortized, likelihood=args.likelihood,
         num_classes=args.num_classes,
         mean_function=args.mean_function, white=not args.no_white,
-        q_diag=args.q_diag, var_precision=args.var_precision,
+        q_diag=args.q_diag,
+        priors=tuple(parse_prior_flag(s) for s in args.prior),
+        feature=args.feature, feature_init_scale=args.feature_init_scale,
+        var_precision=args.var_precision,
         solve_precision=args.solve_precision)
     config, params = build_model(seeds(args.seed)[0], build, X, Y,
                                  device=device, dtype=dtype)

@@ -1,10 +1,12 @@
 """DGP model stack: layers, encoders, the prediction path, builder
 (port of dgps_with_iwvi_tpu/models)."""
 
-from .builder import (BuildArgs, build_config, build_model, kmeans_centers,
-                      load_build_args, save_build_args)
+from .builder import (PRIOR_TARGETS, BuildArgs, build_config, build_model,
+                      kmeans_centers, load_build_args, parse_prior_flag,
+                      save_build_args)
 from .dgp import (DGPConfig, elbo, gp_kls, init_dgp, numerics_of, predict_f,
-                  predict_log_density, predict_y, predict_y_and_log_density,
+                  predict_f_full_cov, predict_f_samples, predict_log_density,
+                  predict_y, predict_y_and_log_density, predict_y_samples,
                   prefactor_gp_layers, propagate)
 from .layers import GPLayerConfig, LatentVarMode, LVLayerConfig
 
@@ -14,6 +16,7 @@ __all__ = [
     "GPLayerConfig",
     "LVLayerConfig",
     "LatentVarMode",
+    "PRIOR_TARGETS",
     "build_config",
     "build_model",
     "elbo",
@@ -22,10 +25,14 @@ __all__ = [
     "kmeans_centers",
     "load_build_args",
     "numerics_of",
+    "parse_prior_flag",
     "predict_f",
+    "predict_f_full_cov",
+    "predict_f_samples",
     "predict_log_density",
     "predict_y",
     "predict_y_and_log_density",
+    "predict_y_samples",
     "prefactor_gp_layers",
     "propagate",
     "save_build_args",

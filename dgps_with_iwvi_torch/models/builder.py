@@ -33,7 +33,11 @@ class BuildArgs:
     of ``ops.likelihoods.LIKELIHOOD_KINDS``. num_classes: multiclass and
     softmax give the final layer that many outputs; ordinal has C - 1 bin
     edges. num_tasks: switched_gaussian's task count, 0 to read it from
-    the kernel's first coregion leaf."""
+    the kernel's first coregion leaf. white: the whitened parameterization
+    of q(u). priors: (path_suffix, kind, a, b) specs (``ops/priors.py``,
+    ``parse_prior_flag``). feature: 'points' or 'multiscale' on every GP
+    layer (``ops/features.py``, rbf only), the windows starting at
+    feature_init_scale."""
 
     configuration: str = "G"
     mode: str = "VI"            # 'VI' | 'IW'
@@ -55,10 +59,31 @@ class BuildArgs:
     mean_function: str = "auto"
     white: bool = True
     q_diag: bool = False
+    priors: tuple = ()
+    feature: str = "points"
+    feature_init_scale: float = 0.1
     var_precision: str = "default"
     solve_precision: str = "high"
     use_pallas: bool | str = "auto"   # DGPConfig.use_pallas
     serve_pallas: bool | str = "auto"  # DGPConfig.serve_pallas
+
+
+# prior targets by name -> parameter-path suffixes (ops/priors.py)
+PRIOR_TARGETS = {
+    "kernel_variance": "kernel/raw_variance",
+    "lengthscales": "kernel/raw_lengthscales",
+    "noise_variance": "raw_noise_variance",
+}
+
+
+def parse_prior_flag(spec: str) -> tuple:
+    """'kernel_variance=gamma(2,3)' -> ('kernel/raw_variance', 'gamma',
+    2.0, 3.0); a target not in PRIOR_TARGETS is taken as a path suffix."""
+    target, _, dist = spec.partition("=")
+    kind, _, args = dist.partition("(")
+    a, b = (float(v) for v in args.rstrip(")").split(","))
+    target = target.strip()
+    return (PRIOR_TARGETS.get(target, target), kind.strip(), a, b)
 
 
 def save_build_args(ckpt_dir: str, args: BuildArgs, **train_meta) -> str:
@@ -87,7 +112,9 @@ def load_build_args(ckpt_dir: str, with_meta: bool = False):
     with open(path) as f:
         d = json.load(f)
     meta = d.pop("_train", {})
-    d["encoder_hidden"] = tuple(d["encoder_hidden"])  # JSON gives a list
+    # JSON gives lists; a file written before priors existed has none
+    d["encoder_hidden"] = tuple(d["encoder_hidden"])
+    d["priors"] = tuple(tuple(p) for p in d.get("priors", ()))
     build = BuildArgs(**d)
     return (build, meta) if with_meta else build
 
@@ -186,7 +213,9 @@ def build_config(args: BuildArgs, d_x: int, d_y: int,
             layer_cfgs.append(GPLayerConfig(
                 d_in=width, d_out=d_out, num_inducing=args.num_inducing,
                 kernel_kind=args.kernel_kind, final=final, white=args.white,
-                q_diag=args.q_diag, mean_function=args.mean_function))
+                q_diag=args.q_diag, mean_function=args.mean_function,
+                feature=args.feature,
+                feature_init_scale=args.feature_init_scale))
             width = d_out
     return DGPConfig(
         layers=tuple(layer_cfgs),
@@ -198,6 +227,7 @@ def build_config(args: BuildArgs, d_x: int, d_y: int,
         use_pallas=args.use_pallas,
         likelihood=args.likelihood,
         jitter_tries=args.jitter_tries,
+        priors=tuple(tuple(p) for p in args.priors),
         var_precision=args.var_precision,
         solve_precision=args.solve_precision,
         serve_pallas=args.serve_pallas,

@@ -1,14 +1,15 @@
 """DGP model, objectives and prediction (port of dgps_with_iwvi_tpu/models/dgp.py).
 
 ``DGPConfig``, ``init_dgp``, ``prefactor_gp_layers``, ``propagate``, the
-objectives ``gp_kls`` and ``elbo`` ('vi' and 'iw', l.245-296) and the
-prediction functions, of which ``predict_y_and_log_density`` is the live
-scoring call. Hyperparameter priors wait for ROADMAP queue 7.
+objectives ``gp_kls`` and ``elbo`` ('vi' and 'iw', with the
+hyperparameter log-prior, l.245-296) and the prediction functions:
+``predict_y_and_log_density`` (the live scoring call), the marginal and
+full-covariance predictives and the function and observation draws.
 
 Noise: the reference keys layer i with ``fold_in(key, i)``. Here every
 sample site takes either the caller's noise (``eps[i]`` for layer i: w of
-a latent-variable layer, the sample noise of an inner GP layer) or a
-draw from ``generator``.
+a latent-variable layer, the sample noise of an inner GP layer; the
+sampling predictives' own draws by name) or a draw from ``generator``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ from typing import Sequence
 
 import torch
 
-from ..ops import likelihoods, linalg
+from ..ops import conditionals, features, kernels, likelihoods, linalg
+from ..ops import priors as priors_mod
 from ..ops.precision import Numerics
 from .layers import (GPLayerConfig, LatentVarMode, LVLayerConfig,
                      gp_layer_init, gp_layer_kl, gp_layer_propagate,
-                     layer_Kuu, lv_layer_init, lv_layer_propagate)
+                     layer_Kuu, layer_mean_function, lv_layer_init,
+                     lv_layer_propagate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +64,9 @@ class DGPConfig:
     jitter_tries: int = 4
     var_precision: str = "default"
     solve_precision: str = "high"
-    priors: tuple = ()          # hyperparameter priors: ROADMAP queue 7
+    # hyperparameter priors, (path_suffix, kind, a, b) specs
+    # (ops/priors.py), added to the objective; () = off
+    priors: tuple = ()
     serve_pallas: bool | str = "auto"
 
     def __post_init__(self):
@@ -134,14 +139,17 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
               eps: Sequence | None = None,
               generator: torch.Generator | None = None,
               factors: dict | None = None,
-              numerics: Numerics | None = None):
+              numerics: Numerics | None = None,
+              stop_before_final: bool = False):
     """Thread samples through the layer stack.
 
     Returns (fmean, fvar, log_w, local_kl): fmean/fvar [*lead, B, d_y] the
     final layer's moments, log_w [*lead, B], local_kl [B].
     eps: per-layer noise (None entries draw from ``generator``). Y and
     data_idx feed the POSTERIOR latent mode. factors: a
-    prefactor_gp_layers result to share; computed here when None."""
+    prefactor_gp_layers result to share; computed here when None.
+    stop_before_final=True: returns (F, log_w, local_kl, factors) with F
+    the final layer's input samples, without running it."""
     B = X.shape[0]
     numerics = numerics_of(config) if numerics is None else numerics
     F = torch.broadcast_to(X, tuple(lead) + X.shape)
@@ -162,6 +170,8 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
             local_kl = local_kl + kl_i
             lv_idx += 1
         else:
+            if stop_before_final and cfg.final:
+                return F, log_w, local_kl, factors
             Lm, Linv = factors[i]
             F, moments = gp_layer_propagate(
                 params["layers"][i], cfg, F, eps=eps_i, generator=generator,
@@ -175,9 +185,14 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
     return fmean, fvar, log_w, local_kl
 
 
-def gp_kls(params, config: DGPConfig) -> torch.Tensor:
-    """Sum of the global whitened KL(q(u) || p(u)) over GP layers."""
-    return sum(gp_layer_kl(params["layers"][i], cfg)
+def gp_kls(params, config: DGPConfig,
+           factors: dict | None = None) -> torch.Tensor:
+    """Sum of the global KL(q(u) || p(u)) over GP layers. factors: the
+    step's prefactor_gp_layers result, whose Lm the non-whitened KLs share
+    (else each factors its Kuu)."""
+    return sum(gp_layer_kl(params["layers"][i], cfg, config.jitter,
+                           config.jitter_tries,
+                           None if factors is None else factors[i][0])
                for i, cfg in enumerate(config.layers)
                if isinstance(cfg, GPLayerConfig))
 
@@ -192,16 +207,17 @@ def elbo(params, config: DGPConfig, X: torch.Tensor, Y: torch.Tensor,
     iw: (N/B) sum_B [logsumexp_K(ve + log_w) - log K] - sum KL.
     eps: per-layer noise as in ``propagate``; data_idx: the minibatch's
     dataset rows (non-amortized latent layers); numerics: the precision
-    set (default: the config's)."""
-    if config.priors:
-        raise NotImplementedError(
-            "hyperparameter priors are not ported yet (ROADMAP queue 7)")
+    set (default: the config's). One batched Kuu factorization serves the
+    conditionals and the non-whitened KLs; the hyperparameter log-prior
+    (config.priors) is added once."""
     scale = config.num_data / X.shape[0]
     lead = (config.num_samples if config.objective == "vi"
             else config.num_iw_samples,)
+    factors = prefactor_gp_layers(params, config)
     fmean, fvar, log_w, local_kl = propagate(
         params, config, X, lead, lv_mode=LatentVarMode.POSTERIOR, Y=Y,
-        data_idx=data_idx, eps=eps, generator=generator, numerics=numerics)
+        data_idx=data_idx, eps=eps, generator=generator, factors=factors,
+        numerics=numerics)
     ve = likelihoods.dispatch_variational_expectations(
         params["likelihood"], fmean, fvar, Y, kind=config.likelihood)
     if config.objective == "vi":
@@ -209,21 +225,108 @@ def elbo(params, config: DGPConfig, X: torch.Tensor, Y: torch.Tensor,
     else:
         datafit = torch.sum(torch.logsumexp(ve + log_w, dim=0)
                             - math.log(float(lead[0])))
-    return scale * datafit - gp_kls(params, config)
+    out = scale * datafit - gp_kls(params, config, factors)
+    if config.priors:
+        out = out + priors_mod.log_prior(params, config.priors)
+    return out
 
 
 def predict_f(params, config: DGPConfig, X: torch.Tensor,
               generator: torch.Generator | None = None,
               num_samples: int | None = None, *,
               lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
+              Y: torch.Tensor | None = None,
+              data_idx: torch.Tensor | None = None,
               eps: Sequence | None = None, factors: dict | None = None):
     """S propagated samples of the final-layer moments: [S, B, d_y] x2.
-    factors: a prefactor_gp_layers result to reuse (else computed)."""
+
+    Latents come from the PRIOR; to reconstruct at training points pass
+    lv_mode=LatentVarMode.POSTERIOR with Y (amortized layers) or data_idx
+    (non-amortized). factors: a prefactor_gp_layers result to reuse (else
+    computed)."""
     S = num_samples or config.num_samples
     fmean, fvar, _, _ = propagate(
-        params, config, X, (S,), lv_mode=lv_mode, ws_given=ws_given,
-        eps=eps, generator=generator, factors=factors)
+        params, config, X, (S,), lv_mode=lv_mode, ws_given=ws_given, Y=Y,
+        data_idx=data_idx, eps=eps, generator=generator, factors=factors)
     return fmean, fvar
+
+
+def predict_f_full_cov(params, config: DGPConfig, X: torch.Tensor,
+                       generator: torch.Generator | None = None,
+                       num_samples: int | None = None, *,
+                       lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
+                       Y: torch.Tensor | None = None,
+                       data_idx: torch.Tensor | None = None,
+                       eps: Sequence | None = None,
+                       factors: dict | None = None):
+    """The final layer's full-covariance predictive given S sampled paths
+    through the earlier layers (marginal between layers, as the
+    doubly-stochastic factorization has it): mean [S, B, d_y] and cov
+    [S, d_y, B, B], all S at once (the reference maps over them).
+    Arguments as ``predict_f``."""
+    S = num_samples or config.num_samples
+    F, _, _, factors = propagate(
+        params, config, X, (S,), lv_mode=lv_mode, ws_given=ws_given, Y=Y,
+        data_idx=data_idx, eps=eps, generator=generator, factors=factors,
+        stop_before_final=True)
+    i = len(config.layers) - 1
+    cfg, lp = config.layers[i], params["layers"][i]
+    q_sqrt = lp["q_sqrt"] if cfg.q_diag else torch.tril(lp["q_sqrt"])
+    scales = lp.get("raw_Z_scales")
+    if scales is not None:
+        Kuf = features.multiscale_Kuf(lp["kernel"], lp["Z"], scales, F)
+    else:
+        Kuf = kernels.K(lp["kernel"], lp["Z"], F, kind=cfg.kernel_kind)
+    Kff = kernels.K(lp["kernel"], F, F, kind=cfg.kernel_kind)
+    out = conditionals.base_conditional_whitened_fullcov(
+        Kuf, factors[i][0], Kff, lp["q_mu"], q_sqrt, white=cfg.white)
+    mf = layer_mean_function(lp, cfg, F)
+    return (out.mean if mf is None else out.mean + mf), out.var
+
+
+def predict_f_samples(params, config: DGPConfig, X: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      num_samples: int | None = None, *,
+                      lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
+                      Y: torch.Tensor | None = None,
+                      data_idx: torch.Tensor | None = None,
+                      eps: Sequence | None = None,
+                      sample_eps: torch.Tensor | None = None,
+                      factors: dict | None = None) -> torch.Tensor:
+    """S function draws [S, B, d_y]: one reparameterized draw from each
+    path's final-layer marginal (marginal across X; joint draws over a
+    small X come from ``predict_f_full_cov``). sample_eps: the draw's
+    noise [S, B, d_y], else from ``generator``; other arguments as
+    ``predict_f``."""
+    fmean, fvar = predict_f(params, config, X, generator, num_samples,
+                            lv_mode=lv_mode, ws_given=ws_given, Y=Y,
+                            data_idx=data_idx, eps=eps, factors=factors)
+    if sample_eps is None:
+        sample_eps = torch.randn(fmean.shape, generator=generator,
+                                 dtype=fmean.dtype, device=fmean.device)
+    return fmean + conditionals.safe_sqrt(fvar) * sample_eps.to(fmean)
+
+
+def predict_y_samples(params, config: DGPConfig, X: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      num_samples: int | None = None, *,
+                      lv_mode: str = LatentVarMode.PRIOR, ws_given=None,
+                      Y: torch.Tensor | None = None,
+                      data_idx: torch.Tensor | None = None,
+                      eps: Sequence | None = None,
+                      sample_eps: torch.Tensor | None = None,
+                      obs_noise=None, factors: dict | None = None):
+    """S observation draws [S, B, d_y] (multiclass and softmax: [S, B, 1]
+    labels): ``predict_f_samples`` pushed through the observation model
+    (``likelihoods.dispatch_sample_observations``, its injected draws
+    ``obs_noise``)."""
+    fs = predict_f_samples(params, config, X, generator, num_samples,
+                           lv_mode=lv_mode, ws_given=ws_given, Y=Y,
+                           data_idx=data_idx, eps=eps, sample_eps=sample_eps,
+                           factors=factors)
+    return likelihoods.dispatch_sample_observations(
+        params["likelihood"], fs, generator, kind=config.likelihood,
+        noise=obs_noise)
 
 
 def _mixture_moments(params, config, fmean, fvar, Y=None):

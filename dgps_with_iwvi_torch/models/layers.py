@@ -1,4 +1,4 @@
-"""DGP layer stack: whitened SVGP layers and latent-variable layers
+"""DGP layer stack: SVGP layers and latent-variable layers
 (port of dgps_with_iwvi_tpu/models/layers.py).
 
 A layer is a static dataclass config plus a plain dict of tensors. Leading
@@ -18,9 +18,9 @@ import dataclasses
 
 import torch
 
-from ..ops import conditionals, kernels, kl, mean_functions
+from ..ops import conditionals, features, kernels, kl, mean_functions
 from ..ops.hopper import serve_cond
-from ..ops.linalg import DEFAULT_JITTER
+from ..ops.linalg import DEFAULT_JITTER, cholesky_with_jitter
 from ..ops.precision import Numerics
 from . import encoders
 
@@ -50,6 +50,10 @@ class GPLayerConfig:
     final: bool = False   # final layers return (mean, var), no sample
     white: bool = True    # whitened q(v), u = Lm v
     q_diag: bool = False  # diagonal q covariance
+    # inducing features (ops/features.py): 'points' or 'multiscale'
+    # (trainable Gaussian windows, raw_Z_scales [M, d_in]; rbf only)
+    feature: str = "points"
+    feature_init_scale: float = 0.1  # multiscale window width at init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,10 +92,10 @@ def gp_layer_init(generator: torch.Generator, cfg: GPLayerConfig,
                   Z: torch.Tensor | None = None, lengthscales=1.0,
                   kernel_variance: float = 1.0, q_sqrt_scale: float = 1.0, *,
                   dtype=torch.float32, device="cuda"):
-    """Parameters of one whitened SVGP layer: q_mu = 0, q_sqrt = scale * I,
-    the kernel's tree from ``kernels.kernel_params`` (any kind, leaf or
+    """Parameters of one SVGP layer: q_mu = 0, q_sqrt = scale * I, the
+    kernel's tree from ``kernels.kernel_params`` (any kind, leaf or
     composite: unit variance, ARD lengthscales); Z standard normal unless
-    given."""
+    given; raw_Z_scales [M, d_in] for multiscale features."""
     kw = dict(dtype=dtype, device=device)
     m = cfg.num_inducing
     if Z is None:
@@ -109,6 +113,15 @@ def gp_layer_init(generator: torch.Generator, cfg: GPLayerConfig,
         "q_mu": torch.zeros((m, cfg.d_out), **kw),
         "q_sqrt": q_sqrt,
     }
+    if cfg.feature == "multiscale":
+        if cfg.kernel_kind != "rbf":
+            raise ValueError("multiscale inducing features are defined for "
+                             f"the RBF kernel only, got {cfg.kernel_kind!r}")
+        params["raw_Z_scales"] = features.multiscale_scales_init(
+            m, cfg.d_in, cfg.feature_init_scale, **kw)
+    elif cfg.feature != "points":
+        raise ValueError(f"unknown inducing feature {cfg.feature!r}; one of "
+                         f"{features.FEATURE_KINDS}")
     mf = resolved_mean_function(cfg)
     if mf == "skip":
         W = mean_functions.skip_projection(cfg.d_in, cfg.d_out, **kw)
@@ -142,9 +155,29 @@ def lv_layer_init(generator: torch.Generator, cfg: LVLayerConfig, *,
 
 
 def layer_Kuu(params, cfg: GPLayerConfig) -> torch.Tensor:
-    """[M, M] prior covariance of this layer's inducing variables."""
+    """[M, M] prior covariance of this layer's inducing variables: the
+    gram for points, the window integrals for multiscale features."""
+    scales = params.get("raw_Z_scales")
+    if scales is not None:
+        return features.multiscale_Kuu(params["kernel"], params["Z"], scales)
     return kernels.K(params["kernel"], params["Z"], params["Z"],
                      kind=cfg.kernel_kind)
+
+
+def layer_mean_function(params, cfg: GPLayerConfig, F: torch.Tensor):
+    """The layer's mean function at its inputs F [..., B, d_in], or None
+    for the zero mean."""
+    mf_kind = resolved_mean_function(cfg)
+    if mf_kind == "skip":
+        W = params.get("mean_W")  # fixed: no gradient, as in the reference
+        return mean_functions.apply_mean_function(
+            F, None if W is None else W.detach())
+    if mf_kind == "linear":
+        return mean_functions.linear_mean(F, params["mean_W"]) \
+            + params["mean_b"]
+    if mf_kind == "constant":
+        return params["mean_b"]
+    return None
 
 
 def gp_layer_propagate(
@@ -162,7 +195,7 @@ def gp_layer_propagate(
     use_pallas: bool | str = False,
     serve_pallas: bool | str = False,
 ):
-    """One whitened-SVGP layer step.
+    """One SVGP layer step.
 
     Non-final: (reparameterized sample [..., B, d_out], (mean, var)), the
     sample noise from ``eps`` or ``generator``. Final: (None, (mean, var)).
@@ -172,7 +205,9 @@ def gp_layer_propagate(
     through K4 (inference only; "auto" where no gradient is needed through
     this layer and F lies on the card); ``use_pallas`` takes an inner layer's
     conditional and sample through K5 ``sample`` and the final layer's
-    conditional through K5 ``fused``; else the default route.
+    conditional through K5 ``fused``; else the default route. Multiscale
+    features (``raw_Z_scales``) take neither K4 nor K5: both assume the
+    plain gram.
     """
     q_cov = params.get("q_cov", params.get("q_cov_diag"))
     if q_cov is not None:
@@ -180,13 +215,16 @@ def gp_layer_propagate(
     else:
         q_sqrt = (params["q_sqrt"] if cfg.q_diag
                   else torch.tril(params["q_sqrt"]))
-    if use_pallas == "auto":
+    feat_scales = params.get("raw_Z_scales")
+    if use_pallas == "auto" or feat_scales is not None:
         use_pallas = False
-    serve_fused = conditionals._serve_fused_applicable(
-        F, q_sqrt, q_cov, cfg.kernel_kind, cfg.white, numerics.var,
-        numerics.solve, serve_pallas, serve_cond.needs_grad(
-            F, params["Z"], params["q_mu"], q_sqrt, Lm, Linv,
-            *kernels.param_leaves(params["kernel"])))
+    serve_fused = (feat_scales is None
+                   and conditionals._serve_fused_applicable(
+                       F, q_sqrt, q_cov, cfg.kernel_kind, cfg.white,
+                       numerics.var, numerics.solve, serve_pallas,
+                       serve_cond.needs_grad(
+                           F, params["Z"], params["q_mu"], q_sqrt, Lm, Linv,
+                           *kernels.param_leaves(params["kernel"]))))
     fused_sample = serve_fused and not cfg.final
     if serve_fused:
         noise = (None if cfg.final else
@@ -211,18 +249,8 @@ def gp_layer_propagate(
             var_precision=numerics.var, solve_precision=numerics.solve,
             solve_bwd_precision=numerics.solve_bwd,
             kuf_residual=numerics.kuf_residual, Lm=Lm, Linv=Linv, q_S=q_cov,
-            use_pallas=use_pallas)
-    mf_kind = resolved_mean_function(cfg)
-    if mf_kind == "skip":
-        W = params.get("mean_W")  # fixed: no gradient, as in the reference
-        mf = mean_functions.apply_mean_function(
-            F, None if W is None else W.detach())
-    elif mf_kind == "linear":
-        mf = mean_functions.linear_mean(F, params["mean_W"]) + params["mean_b"]
-    elif mf_kind == "constant":
-        mf = params["mean_b"]
-    else:
-        mf = None
+            use_pallas=use_pallas, feature_raw_scales=feat_scales)
+    mf = layer_mean_function(params, cfg, F)
     mean = out.mean if mf is None else out.mean + mf
     if cfg.final:
         return None, (mean, out.var)
@@ -234,22 +262,35 @@ def gp_layer_propagate(
     return sample, (mean, out.var)
 
 
-def gp_layer_kl(params, cfg: GPLayerConfig) -> torch.Tensor:
-    """Global KL(q(u) || p(u)) of one whitened GP layer (reference
-    ``layers.py:286-315``; the non-whitened KL waits for ROADMAP queue 7)."""
-    if not cfg.white:
-        raise NotImplementedError(
-            "the non-whitened KL is not ported yet (ROADMAP queue 7)")
+def gp_layer_kl(params, cfg: GPLayerConfig, jitter: float = DEFAULT_JITTER,
+                jitter_tries: int = 4,
+                Lm: torch.Tensor | None = None) -> torch.Tensor:
+    """Global KL(q(u) || p(u)) of one GP layer (reference
+    ``layers.py:286-315``). A non-whitened layer needs chol(Kuu): pass the
+    step's shared ``Lm`` (``dgp.prefactor_gp_layers``), else it is
+    factored here."""
     if cfg.q_diag:
+        if not cfg.white:
+            raise ValueError("q_diag layers are whitened only")
         if "q_cov_diag" in params:
             return kl.gauss_kl_white_diagvar(params["q_mu"],
                                              params["q_cov_diag"])
         return kl.gauss_kl_white_diag(params["q_mu"], params["q_sqrt"])
-    if "q_cov" in params:
-        return kl.gauss_kl_white_cov(params["q_mu"], params["q_cov"],
-                                     params["q_cov_logdet"],
-                                     params["q_cov_Sinv"])
-    return kl.gauss_kl_white(params["q_mu"], torch.tril(params["q_sqrt"]))
+    q_cov = params.get("q_cov")
+    if cfg.white:
+        if q_cov is not None:
+            return kl.gauss_kl_white_cov(params["q_mu"], q_cov,
+                                         params["q_cov_logdet"],
+                                         params["q_cov_Sinv"])
+        return kl.gauss_kl_white(params["q_mu"],
+                                 torch.tril(params["q_sqrt"]))
+    if Lm is None:
+        Lm = cholesky_with_jitter(layer_Kuu(params, cfg), jitter,
+                                  max_tries=jitter_tries)
+    if q_cov is not None:
+        return kl.gauss_kl_cov(params["q_mu"], q_cov, params["q_cov_logdet"],
+                               params["q_cov_Sinv"], Lm)
+    return kl.gauss_kl(params["q_mu"], torch.tril(params["q_sqrt"]), Lm)
 
 
 def lv_layer_propagate(

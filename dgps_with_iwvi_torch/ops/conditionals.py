@@ -1,4 +1,4 @@
-"""Whitened sparse-variational GP conditionals, forward
+"""Sparse-variational GP conditionals, forward
 (port of dgps_with_iwvi_tpu/ops/conditionals.py).
 
 Whitened semantics: q(v) = N(q_mu, q_sqrt q_sqrt^T), u = Lm v,
@@ -27,6 +27,15 @@ Function for both, whose forward is the same K2 launch, and carries no
 floor. At ``highest`` (the full-batch escalation) the conditions fail and
 the plain path runs, as the reference's overrides make it.
 
+Non-whitened layers (``base_conditional(white=False)``, reference
+l.683-716) hold q over u itself: A1 = Lm^-1 Kuf gives the prior term,
+A = Lm^-T A1 = Kuu^-1 Kuf the mean and the q-variance, which goes through
+``_q_variance`` and so through K2/K3's q-variance-only variant
+(``QvarFusedTrain``) on the card. ``base_conditional_whitened_fullcov``
+is the full-covariance form of prediction, all at ``highest``. Multiscale
+features (``conditional(feature_raw_scales=)``) swap Kuu and Kuf for the
+window integrals of ``ops/features.py``.
+
 The whole-conditional routes (reference l.808-998) take the gram, A, the
 moments and optionally the sample in one kernel, on lengthscale-scaled
 inputs (so the lengthscale and variance gradients flow through ordinary
@@ -53,7 +62,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import kernels, precision
+from . import features, kernels, precision
 from .hopper import conditional as cond_kernel
 from .hopper import qvar as qvar_kernel
 from .hopper import serve_cond as serve_kernel
@@ -62,7 +71,7 @@ from .linalg import DEFAULT_JITTER, cholesky_with_jitter, solve_triangular
 
 class ConditionalOut(NamedTuple):
     mean: torch.Tensor  # [..., N, D]
-    var: torch.Tensor   # [..., N, D] (marginal)
+    var: torch.Tensor   # [..., N, D] (marginal) or [..., D, N, N] (full)
 
 
 def safe_sqrt(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -166,6 +175,76 @@ def base_conditional_whitened(
     return ConditionalOut(mean, fvar_prior[..., None] + fvar_q)
 
 
+def base_conditional(
+    Kuf: torch.Tensor,        # [..., M, N]
+    Lm: torch.Tensor,         # [M, M] lower Cholesky of Kuu (+jitter)
+    Kff_diag: torch.Tensor,   # [..., N]
+    q_mu: torch.Tensor,       # [M, D]
+    q_sqrt: torch.Tensor,     # [D, M, M] lower-triangular (or [M, D])
+    *,
+    white: bool = True,
+    var_precision: str | None = None,
+    Linv: torch.Tensor | None = None,
+    q_S: torch.Tensor | None = None,
+    solve_precision: str | None = None,
+    solve_bwd_precision: str | None = None,
+) -> ConditionalOut:
+    """Marginal conditional in either parameterization: white=True is
+    ``base_conditional_whitened`` (through the prefactor's Linv where
+    given, its backward at solve_bwd_precision). white=False, q directly
+    over u = f(Z):
+
+        A1   = Lm^-1 Kuf,  A = Lm^-T A1 = Kuu^-1 Kuf
+        mean = A^T q_mu                      (at solve_precision)
+        var  = max(Kff_diag - sum_m A1^2, 0) + q-variance over A
+
+    There A comes from two triangular solves, so Linv and
+    solve_bwd_precision (which govern the product Linv Kuf) have nothing
+    to act on, as in the reference (l.683-716)."""
+    if white:
+        return base_conditional_whitened(
+            Kuf, Lm, Kff_diag, q_mu, q_sqrt, var_precision=var_precision,
+            Linv=Linv, q_S=q_S, solve_precision=solve_precision,
+            solve_bwd_precision=solve_bwd_precision)
+    A1 = solve_triangular(Lm, Kuf, lower=True)
+    fvar_prior = torch.clamp(
+        Kff_diag - torch.sum(torch.square(A1), dim=-2), min=0.0)
+    A = solve_triangular(Lm, A1, lower=True, trans=True)
+    mean = precision.matmul(A.transpose(-1, -2), q_mu, solve_precision)
+    fvar_q = _q_variance(A, q_sqrt, q_S, var_precision)
+    return ConditionalOut(mean, fvar_prior[..., None] + fvar_q)
+
+
+def base_conditional_whitened_fullcov(
+    Kuf: torch.Tensor,        # [M, N]
+    Lm: torch.Tensor,         # [M, M]
+    Kff: torch.Tensor,        # [N, N]
+    q_mu: torch.Tensor,       # [M, D]
+    q_sqrt: torch.Tensor,     # [D, M, M] lower-triangular, or [M, D] scales
+    *,
+    white: bool = True,
+) -> ConditionalOut:
+    """Full-covariance conditional (prediction at a small N), every product
+    at ``highest``: mean [..., N, D], cov [..., D, N, N]. A = Lm^-1 Kuf
+    (white) or Kuu^-1 Kuf; the prior term Kff - Kuf^T Kuu^-1 Kuf is the
+    same in both. A 2-D q_sqrt holds the q_diag family's scales s [M, D]
+    (S_d = diag(s[:, d]^2)). Leading axes of Kuf and Kff broadcast."""
+    def mm(x, y):
+        return precision.matmul(x, y, "highest")
+
+    A1 = solve_triangular(Lm, Kuf, lower=True)
+    prior_cov = Kff - mm(A1.transpose(-1, -2), A1)
+    A = A1 if white else solve_triangular(Lm, A1, lower=True, trans=True)
+    mean = mm(A.transpose(-1, -2), q_mu)
+    A = A.unsqueeze(-3)                                       # [..., 1, M, N]
+    if q_sqrt.ndim == 2:
+        B = q_sqrt.T[:, :, None] * A                          # [..., D, M, N]
+    else:
+        B = mm(q_sqrt.transpose(-1, -2), A)
+    return ConditionalOut(mean, prior_cov.unsqueeze(-3)
+                          + mm(B.transpose(-1, -2), B))
+
+
 def conditional(
     X: torch.Tensor,          # [..., N, D_in]
     Z: torch.Tensor,          # [M, D_in]
@@ -185,26 +264,41 @@ def conditional(
     solve_bwd_precision: str | None = None,
     kuf_residual: bool = True,
     use_pallas: bool | str = False,
+    feature_raw_scales: torch.Tensor | None = None,
 ) -> ConditionalOut:
-    """End-to-end whitened conditional: grams -> chol -> solve -> moments.
+    """End-to-end conditional: grams -> chol -> solve -> moments, whitened
+    or not (``white``).
 
-    Inducing points only; the non-whitened parameterization and the
-    multiscale features wait for ROADMAP queue 7. kuf_residual: whether
-    the cross gram may keep its output as its backward residual
-    (``ops/kernels.py``). use_pallas=True takes the whole conditional
-    through K5 ``fused`` (every dot at f32, whatever the precision
-    arguments say) where the reference's conditions hold: rbf, white, no
-    q_S, a 3-D q_sqrt; "auto" resolves to False, as in the reference."""
-    if not white:
-        raise NotImplementedError(
-            "the non-whitened conditional is not ported yet (ROADMAP "
-            "queue 7)")
+    kuf_residual: whether the cross gram may keep its output as its
+    backward residual (``ops/kernels.py``). use_pallas=True takes the whole
+    conditional through K5 ``fused`` (every dot at f32, whatever the
+    precision arguments say) where the reference's conditions hold: rbf,
+    white, no q_S, a 3-D q_sqrt; "auto" resolves to False, as in the
+    reference. feature_raw_scales: raw [M, D] multiscale window scales
+    (``ops/features.py``, rbf only): Kuu and Kuf become the window
+    integrals, Kff is unchanged, and the default route runs."""
+    if feature_raw_scales is not None:
+        if kernel_kind != "rbf":
+            raise ValueError("multiscale features are defined for the RBF "
+                             f"kernel only, got {kernel_kind!r}")
+        if Lm is None:
+            Kuu = features.multiscale_Kuu(kernel_params, Z,
+                                          feature_raw_scales)
+            Lm = cholesky_with_jitter(Kuu, jitter, max_tries=jitter_tries)
+        Kuf = features.multiscale_Kuf(kernel_params, Z, feature_raw_scales,
+                                      X)
+        Kff_diag = kernels.Kdiag(kernel_params, X, kind=kernel_kind)
+        return base_conditional(
+            Kuf, Lm, Kff_diag, q_mu, q_sqrt, white=white,
+            var_precision=var_precision, Linv=Linv, q_S=q_S,
+            solve_precision=solve_precision,
+            solve_bwd_precision=solve_bwd_precision)
     if Lm is None:
         Kuu = kernels.K(kernel_params, Z, Z, kind=kernel_kind)
         Lm = cholesky_with_jitter(Kuu, jitter, max_tries=jitter_tries)
     if use_pallas == "auto":
         use_pallas = False
-    if (use_pallas and kernel_kind == "rbf" and q_S is None
+    if (use_pallas and kernel_kind == "rbf" and white and q_S is None
             and q_sqrt is not None and q_sqrt.ndim == 3):
         xs, zs, var, shape = _scaled(X, Z, kernel_params, q_mu)
         mean, v = cond_kernel.fused_conditional(
@@ -215,9 +309,10 @@ def conditional(
     Kuf = kernels.K(kernel_params, Z, X, kind=kernel_kind,     # [..., M, N]
                     kuf_residual=kuf_residual)
     Kff_diag = kernels.Kdiag(kernel_params, X, kind=kernel_kind)
-    return base_conditional_whitened(
-        Kuf, Lm, Kff_diag, q_mu, q_sqrt, var_precision=var_precision,
-        Linv=Linv, q_S=q_S, solve_precision=solve_precision,
+    return base_conditional(
+        Kuf, Lm, Kff_diag, q_mu, q_sqrt, white=white,
+        var_precision=var_precision, Linv=Linv, q_S=q_S,
+        solve_precision=solve_precision,
         solve_bwd_precision=solve_bwd_precision)
 
 

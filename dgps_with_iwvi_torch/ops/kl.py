@@ -1,8 +1,10 @@
-"""KL divergences and Gaussian log-densities of the whitened objectives
-(port of dgps_with_iwvi_tpu/ops/kl.py:14-78, 99-110, 132-154).
+"""KL divergences and Gaussian log-densities of the objectives
+(port of dgps_with_iwvi_tpu/ops/kl.py).
 
-The non-whitened ``gauss_kl`` and ``gauss_kl_cov`` wait for ROADMAP
-queue 7.
+Whitened layers take ``gauss_kl_white`` (root form) or
+``gauss_kl_white_cov`` (the natgrad covariance form); non-whitened ones
+``gauss_kl`` and ``gauss_kl_cov``, against p(u) = N(0, Kuu) through the
+step's shared Cholesky factor Lm of Kuu.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .linalg import cho_solve, solve_triangular
 
 _LOG2PI = float(math.log(2.0 * math.pi))
 
@@ -60,6 +64,32 @@ def gauss_kl_white_cov(q_mu: torch.Tensor, q_S: torch.Tensor,
     trace = torch.sum(torch.diagonal(q_S, dim1=-2, dim2=-1))
     logdet = torch.sum(carried_logdet(q_S, logdet_val, Sinv))
     return 0.5 * (mahal + trace - M * D - logdet)
+
+
+def gauss_kl_cov(q_mu: torch.Tensor, q_S: torch.Tensor,
+                 logdet_val: torch.Tensor, Sinv: torch.Tensor,
+                 Lm: torch.Tensor) -> torch.Tensor:
+    """Non-whitened KL in covariance form, q(u) = N(q_mu, S), p(u) =
+    N(0, Lm Lm^T): 0.5 sum_d [m_d^T Kuu^-1 m_d + tr(Kuu^-1 S_d) - M
+    + log det Kuu - log det S_d]."""
+    M, D = q_mu.shape
+    mahal = torch.sum(torch.square(solve_triangular(Lm, q_mu, lower=True)))
+    trace = torch.sum(torch.diagonal(cho_solve(Lm, q_S), dim1=-2, dim2=-1))
+    logdet_q = torch.sum(carried_logdet(q_S, logdet_val, Sinv))
+    logdet_p = D * _logdet_sq_diag(Lm)
+    return 0.5 * (mahal + trace - M * D + logdet_p - logdet_q)
+
+
+def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
+             Lm: torch.Tensor) -> torch.Tensor:
+    """Non-whitened KL(N(q_mu, L L^T) || N(0, Lm Lm^T)) summed over output
+    dims; tr(Kuu^-1 S_d) = ||Lm^-1 L_d||_F^2."""
+    M, D = q_mu.shape
+    L = torch.tril(q_sqrt)
+    mahal = torch.sum(torch.square(solve_triangular(Lm, q_mu, lower=True)))
+    trace = torch.sum(torch.square(solve_triangular(Lm, L, lower=True)))
+    logdet_p = D * _logdet_sq_diag(Lm)
+    return 0.5 * (mahal + trace - M * D + logdet_p - _logdet_sq_diag(L))
 
 
 def gauss_kl_white_diag(q_mu: torch.Tensor,

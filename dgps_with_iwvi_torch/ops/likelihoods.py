@@ -14,7 +14,10 @@ Gauss-Hermite rules; the nodes come from numpy's ``hermegauss``.
 Parameters the reference holds under ``stop_gradient`` (student_t's df,
 ordinal's bin edges) are detached here, so Adam leaves them as the
 reference's zero-gradient Adam does. ``dispatch_sample_observations``
-and ``predict_y_samples`` are not ported yet (ROADMAP queue 7).
+draws observations at given function values (``predict_y_samples``):
+from a ``torch.Generator``, or, where the reference draws a normal or a
+uniform (gaussian, bernoulli, ordinal, multiclass), from the caller's
+draws (``noise``).
 """
 
 from __future__ import annotations
@@ -677,3 +680,99 @@ def dispatch_predict_mean_and_var(params, fmean, fvar, *,
 def dispatch_predict_density(params, fmean, fvar, y, *,
                              kind: str = "gaussian") -> torch.Tensor:
     return _family(kind)[2](params, fmean, fvar, y)
+
+
+def _noise(noise, shape, like, generator, draw):
+    """The caller's draws of `shape`, else `draw` from the generator."""
+    if noise is not None:
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise must have shape {tuple(shape)}, got "
+                             f"{tuple(noise.shape)}")
+        return noise.to(device=like.device)
+    if generator is None:
+        raise ValueError("observation draws need noise or a "
+                         "torch.Generator")
+    return draw(shape, generator=generator, dtype=like.dtype,
+                device=like.device)
+
+
+def _gamma_draws(alpha, generator):
+    """Gamma(alpha, 1) draws, one per element of alpha."""
+    return torch._standard_gamma(alpha.contiguous(), generator=generator)
+
+
+def dispatch_sample_observations(params, fs: torch.Tensor,
+                                 generator: torch.Generator | None = None, *,
+                                 kind: str = "gaussian",
+                                 noise=None) -> torch.Tensor:
+    """One observation draw per function draw f (same shape; [..., 1]
+    labels from [..., C] for multiclass and softmax), the sampling side of
+    the observation model (reference l.827-878).
+
+    noise: the caller's draws in place of the generator's, for the
+    families whose reference draws are normal or uniform: gaussian and
+    ordinal a standard normal of fs's shape, bernoulli a uniform of fs's
+    shape (y = u < Phi(f)), multiclass a pair (u uniform [...], offset
+    integers in [1, C) [...]): the label is the argmax, replaced by
+    (argmax + offset) mod C where u < eps."""
+    if kind == "gaussian":
+        z = _noise(noise, fs.shape, fs, generator, torch.randn)
+        return fs + torch.sqrt(noise_variance(params)) * z
+    if kind == "switched_gaussian":
+        raise ValueError(
+            "switched_gaussian observation sampling needs per-point task "
+            "indices; draw f with predict_f_samples and add "
+            "N(0, s2[task]) noise for your task assignment")
+    if kind == "bernoulli":
+        u = _noise(noise, fs.shape, fs, generator, torch.rand)
+        return (u < torch.special.ndtr(fs)).to(fs.dtype)
+    if kind == "ordinal":
+        z = fs + _noise(noise, fs.shape, fs, generator, torch.randn)
+        edges = params["bin_edges"].detach()
+        return torch.sum(z[..., None] > edges, dim=-1).to(fs.dtype)
+    if kind == "multiclass":
+        C = fs.shape[-1]
+        win = torch.argmax(fs, dim=-1)
+        if noise is None:
+            u = _noise(None, win.shape, fs, generator, torch.rand)
+            offset = torch.randint(1, C, win.shape, generator=generator,
+                                   device=fs.device)
+        else:
+            u, offset = (t.to(fs.device) for t in noise)
+        other = (win + offset.to(win.dtype)) % C
+        return torch.where(u < ROBUSTMAX_EPS, other,
+                           win).to(fs.dtype)[..., None]
+    if noise is not None:
+        raise ValueError(f"{kind!r} draws take a torch.Generator, not "
+                         "injected noise")
+    if generator is None:
+        raise ValueError("observation draws need a torch.Generator")
+    if kind == "student_t":
+        scale = positive(params["raw_scale"])
+        df = params["df"].detach()
+        z = torch.randn(fs.shape, generator=generator, dtype=fs.dtype,
+                        device=fs.device)
+        g = _gamma_draws(torch.broadcast_to(df / 2.0, fs.shape), generator)
+        return fs + scale * z * torch.sqrt(df / (2.0 * g))
+    if kind == "poisson":
+        return torch.poisson(torch.exp(fs), generator=generator)
+    if kind == "exponential":
+        return torch.exp(fs) * torch.empty_like(fs).exponential_(
+            generator=generator)
+    if kind == "gamma":
+        k = positive(params["raw_shape"])
+        return torch.exp(fs) * _gamma_draws(torch.broadcast_to(k, fs.shape),
+                                            generator)
+    if kind == "beta":
+        scale = positive(params["raw_scale"])
+        mu = torch.sigmoid(fs)
+        a = _gamma_draws(mu * scale, generator)
+        b = _gamma_draws((1.0 - mu) * scale, generator)
+        return a / (a + b)
+    if kind == "softmax":  # Gumbel-max over the last axis
+        u = torch.rand(fs.shape, generator=generator, dtype=fs.dtype,
+                       device=fs.device)
+        return torch.argmax(fs - torch.log(-torch.log(u)),
+                            dim=-1).to(fs.dtype)[..., None]
+    raise ValueError(f"unknown likelihood {kind!r}; one of "
+                     f"{LIKELIHOOD_KINDS}")

@@ -121,7 +121,7 @@ EPI_KERNEL_CASES = [
     (2, m, 1000, d, cov, with_mean) for m in (128, 100, 20, 264)
     for d, cov, with_mean in ((8, False, True), (1, False, True),
                               (8, True, True), (3, False, False),
-                              (1, True, False))
+                              (1, True, False), (1, False, False))
 ] + [(2, 128, 1, 8, False, True), (2, 128, 65, 8, False, True),
      (2, 128, 65, 1, True, True), (2, 128, 1, 1, True, False),
      (2, 128, 1000, 16, False, True), (1, 128, 1000, 8, False, True),
@@ -322,6 +322,55 @@ def test_training_functions_launch_k2_and_k3(gen):
                                 "conditional": 0}
     assert build.variant_launches() == {"epilogue:epi": 1,
                                         "epilogue_bwd:epi": 1}
+
+
+def test_non_whitened_step_runs_the_qvar_variants(gen):
+    """A non-whitened LGG training step (natgrad on the final layer) on
+    the card: both GP layers' q-variance goes through K2 'qvar' forward
+    and K3 'qvar' backward, once each, with one K1 for the shared Kuu
+    factor; loss and every gradient equal the same step through the plain
+    versions, the loss at 1e-4 and each gradient at 2e-2 of its largest
+    plain value (chip_smoke.py's step gates)."""
+    from dgps_with_iwvi_torch import training as train
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((2000, 4)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((2000, 1))).astype(
+        np.float32)
+    config, params = build_model(0, BuildArgs(
+        configuration="LGG", mode="IW", num_inducing=64, num_iw_samples=8,
+        white=False), X, Y, device="cuda")
+    Xc, Yc = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+    tc = train.TrainConfig(natgrad="final", minibatch_size=256)
+    state = train.make_trainer(config, tc)[0](params)
+    idx = torch.randint(0, 2000, (256,), generator=gen, device="cuda")
+
+    def step():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        loss, g_nat, g_rest = train.loss_and_grads(config, tc, state, Xc, Yc,
+                                                   g, idx=idx)
+        leaves = [t for nv in g_nat for t in nv.values()]
+        stack = [g_rest]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            elif isinstance(t, (list, tuple)):
+                stack.extend(t)
+            elif t is not None:
+                leaves.append(t)
+        return loss, leaves
+
+    build.reset_launches()
+    loss_k, g_k = step()
+    assert build.variant_launches() == {"epilogue:qvar": 2,
+                                        "epilogue_bwd:qvar": 2}
+    assert build.launches()["chol_inv"] == 1
+    with build.plain_versions():
+        loss_p, g_p = step()
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-4 * abs(float(loss_p))
+    for a, b in zip(g_k, g_p):
+        _rel_close(a, b, 2e-2)
 
 
 def _cond_inputs(gen, n, m, d_in, d, dense_lq=False):

@@ -204,11 +204,25 @@ def test_base_conditional_whitened(form, with_linv):
     _close(out.var, ref.var)
 
 
-def test_conditional_non_white_raises():
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        tcond.conditional(torch.zeros(4, 2), torch.zeros(3, 2), {},
-                          torch.zeros(3, 1), torch.zeros(1, 3, 3),
-                          white=False)
+def test_conditional_non_white_matches_reference():
+    """The end-to-end non-whitened conditional (grams, chol(Kuu), two
+    triangular solves, moments) against the reference's in float64."""
+    rng = np.random.default_rng(11)
+    X, Z = rng.standard_normal((4, 32, 3)), rng.standard_normal((16, 3))
+    kp = _kparams(rng, 3)
+    q_mu = rng.standard_normal((16, 2))
+    q_sqrt = np.tril(rng.standard_normal((2, 16, 16))) * 0.3 \
+        + 0.5 * np.eye(16)
+    ref = jcond.conditional(
+        jnp.asarray(X), jnp.asarray(Z), jax.tree.map(jnp.asarray, kp),
+        jnp.asarray(q_mu), jnp.asarray(q_sqrt), white=False,
+        var_precision="default", solve_precision="high")
+    out = tcond.conditional(
+        _t(X), _t(Z), tparams.params_from_numpy(kp, "cpu"), _t(q_mu),
+        _t(q_sqrt), white=False, var_precision="default",
+        solve_precision="high")
+    _close(out.mean, ref.mean, atol=1e-12)
+    _close(out.var, ref.var)
 
 
 def test_safe_sqrt_floors():

@@ -1,14 +1,10 @@
 """The port's "not ported yet" errors name the ROADMAP queue-1 item that
-ports what they refuse: item 7 (breadth) for the non-whitened conditional
-and KL, hyperparameter priors, and the harness's flags for those and for
-multiscale features; item 8 (parallel) for the
-sharded trainer, ``--shard`` and sharded evaluation, and the serving CLI's
-``--shard`` over more than one card. The items are written
-out here, so that a rewrite of ROADMAP.md cannot break this test. The
-harness refuses a flag before any work: the runs below name a dataset that
-does not exist, which would raise FileNotFoundError had loading begun."""
-
-import dataclasses
+ports what they refuse: item 8 (parallel) for the sharded trainer,
+``--shard`` and sharded evaluation, and the serving CLI's ``--shard``
+over more than one card. The items are written out here, so that a
+rewrite of ROADMAP.md cannot break this test. The harness refuses a flag
+before any work: the run below names a dataset that does not exist,
+which would raise FileNotFoundError had loading begun."""
 
 import pytest
 import torch
@@ -16,33 +12,12 @@ import torch
 from dgps_with_iwvi_torch.evaluation import evaluate
 from dgps_with_iwvi_torch.experiments import main, serve
 from dgps_with_iwvi_torch.models import BuildArgs, build_config
-from dgps_with_iwvi_torch.models import dgp, layers
-from dgps_with_iwvi_torch.ops import conditionals, kernels
 from dgps_with_iwvi_torch.training import TrainConfig, fit
 
 
 def _config():
     return build_config(BuildArgs(configuration="LGG", mode="IW",
                                   num_inducing=4, num_iw_samples=2), 2, 1, 8)
-
-
-def _non_whitened_conditional():
-    Z = torch.zeros(4, 2)
-    conditionals.conditional(torch.zeros(3, 2), Z,
-                             kernels.rbf_params(2, device="cpu"),
-                             torch.zeros(4, 1), torch.eye(4)[None],
-                             white=False)
-
-
-def _non_whitened_kl():
-    cfg = next(c for c in _config().layers
-               if isinstance(c, layers.GPLayerConfig))
-    layers.gp_layer_kl({}, dataclasses.replace(cfg, white=False))
-
-
-def _hyperparameter_priors():
-    config = dataclasses.replace(_config(), priors=("lengthscales",))
-    dgp.elbo(None, config, torch.zeros(3, 2), torch.zeros(3, 1))
 
 
 def _sharded_trainer():
@@ -65,14 +40,8 @@ def _cli(name, *flags):
 
 
 @pytest.mark.parametrize("raise_site,item", [
-    (_non_whitened_conditional, 7),
-    (_non_whitened_kl, 7),
-    (_hyperparameter_priors, 7),
     (_sharded_trainer, 8),
     (_sharded_evaluation, 8),
-    (_cli("prior", "--prior", "noise_variance=lognormal(-2,1)"), 7),
-    (_cli("feature", "--feature", "multiscale"), 7),
-    (_cli("no_white", "--no_white"), 7),
     (_cli("shard", "--shard"), 8),
 ], ids=lambda v: getattr(v, "__name__", str(v)).strip("_"))
 def test_not_ported_errors_name_their_queue_item(raise_site, item):

@@ -202,7 +202,9 @@ def test_port_imports_no_jax():
             "[importlib.import_module(m) for m in mods];"
             "assert len(mods) > 20, mods;"
             "assert {'dgps_with_iwvi_torch.serving', "
-            "'dgps_with_iwvi_torch.experiments.serve'} <= set(mods), mods;"
+            "'dgps_with_iwvi_torch.experiments.serve', "
+            "'dgps_with_iwvi_torch.ops.features', "
+            "'dgps_with_iwvi_torch.ops.priors'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'dgps_with_iwvi_tpu'))];"
             "print(bad); sys.exit(1 if bad else 0)")
