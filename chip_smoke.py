@@ -98,10 +98,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    phase 6's checkpoint (one K1 and K4 'sample' and 'infer' per call,
    sample means within 5 standard errors of the mixture mean) and
    ``dispatch_sample_observations`` of every family (10^6 draws each,
-   mean and variance within 5 standard errors of the analytic values).
+   mean and variance within 5 standard errors of the analytic values);
+10. parallel: two ranks spawned on the one card (``torch.multiprocessing``,
+   both on cuda:0, gloo through a ``FileStore``: the model math and every
+   kernel on the card, the collectives through the host), the flagship
+   configuration on the kin8nm surrogate: (a) one sharded step with
+   injected draws on the 2x1 and the 1x2 mesh, K1, K2 and K3 twice each
+   per rank, its summed loss and gradients held to the same step in one
+   process on the card and to the sharded step on the plain versions at
+   phase 5's gates; then ``use_pallas`` on 2x1, K5 'sample' once per rank,
+   against the one-process step on each rank's rows and noise generator;
+   (b) ``fit(mesh=)`` for 100 steps on 1x2 (K split over the ranks): the
+   replicas bitwise equal after every chunk, the loss falling, and a run
+   resumed from the step-50 checkpoint bitwise equal to the straight run;
+   (c) ``evaluate(mesh=)`` on the test split within rtol 1e-6 of the
+   unsharded ``evaluate``, K1 and K4 on each rank; (d)
+   ``experiments.main.run --shard --n_k 2``: one results row, from rank 0,
+   test loglik above the untrained model's; ``experiments.serve.run
+   --shard`` on its checkpoint, its .npz within rtol 1e-6 of the unsharded
+   scoring; (e) a world of one rank on NCCL: one ``fit(mesh=)`` chunk
+   whose mean loss equals the single-device chunk's on the same draws.
+   Launches are counted per rank around the sharded paths only; the
+   two-rank steps/s is printed as two processes time-sliced on one card,
+   not a scaling figure.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
-above, by path), then the card's name and power limit, then
+above, by path; phase 10's by rank), then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits
 non-zero without a result where CUDA is unavailable or the package is not
 beside this script. ``--out DIR`` also writes the whole record to
@@ -1279,6 +1301,36 @@ def _path_counts(build) -> dict:
     return counts
 
 
+# a step through the kernels against the same step on other terms: the
+# same rounding classes on both paths; the f32 sums run in another order,
+# and a bf16 rounding boundary crossed by dt or ga moves one product term
+# by a bf16 unit: the bf16 class of the reference's tolerance
+# (tests/test_pallas_epilogue.py:115-117)
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 2e-2
+
+
+def _step_leaves(loss, g_nat, g_rest) -> tuple:
+    """(loss, [(name, gradient)]) of a loss_and_grads result."""
+    def tensors(tree, path):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items()
+                    for x in tensors(v, f"{path}.{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree)
+                    for x in tensors(v, f"{path}[{i}]")]
+        return [] if tree is None else [(path, tree)]
+
+    return loss, tensors(g_nat, "natvars") + tensors(g_rest, "rest")
+
+
+def _step_gaps(got, ref) -> tuple:
+    """(relative loss gap, {leaf: max gap / max|ref|}) of two
+    ``_step_leaves`` results."""
+    loss_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    return loss_rel, {name: max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                      for (name, a), (_, b) in zip(got[1], ref[1])}
+
+
 def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
                     gen_seed=None, exact_params=None):
     """One step's loss and every gradient through the kernels and through
@@ -1295,28 +1347,16 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
     kernels against plain versions cannot hold it at any limit."""
     from dgps_with_iwvi_torch.ops.hopper import build
 
-    def tensors(tree, path):
-        if isinstance(tree, dict):
-            return [x for k, v in tree.items()
-                    for x in tensors(v, f"{path}.{k}")]
-        if isinstance(tree, (list, tuple)):
-            return [x for i, v in enumerate(tree)
-                    for x in tensors(v, f"{path}[{i}]")]
-        return [] if tree is None else [(path, tree)]
-
     def run():
         gen = (None if gen_seed is None else
                torch.Generator(device="cuda").manual_seed(gen_seed))
-        loss, g_nat, g_rest = train.loss_and_grads(config, tc, state, X, Y,
-                                                   gen, idx=idx, eps=eps)
-        return loss, tensors(g_nat, "natvars") + tensors(g_rest, "rest")
+        return _step_leaves(*train.loss_and_grads(config, tc, state, X, Y,
+                                                  gen, idx=idx, eps=eps))
 
     loss_k, g_k = run()
     with build.plain_versions():
         loss_p, g_p = run()
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    by_leaf = {name: max_err(a, b) / max(float(b.abs().max()), 1e-30)
-               for (name, a), (_, b) in zip(g_k, g_p)}
+    loss_rel, by_leaf = _step_gaps((loss_k, g_k), (loss_p, g_p))
     grad_rel = max(by_leaf.values())
     exact = None
     if exact_params is not None:
@@ -1329,10 +1369,9 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
 
         state64 = train.make_trainer(config, tc)[0](f64(exact_params))
         with build.plain_versions():
-            _, g64n, g64r = train.loss_and_grads(
+            _, g_64 = _step_leaves(*train.loss_and_grads(
                 config, tc, state64, X.double(), Y.double(), None, idx=idx,
-                eps=[None if e is None else e.double() for e in eps])
-        g_64 = tensors(g64n, "natvars") + tensors(g64r, "rest")
+                eps=[None if e is None else e.double() for e in eps]))
         exact = {}
         for (name, a), (_, b), (_, c) in zip(g_k, g_p, g_64):
             scale = max(float(c.abs().max()), 1e-300)
@@ -1342,11 +1381,7 @@ def _grad_agreement(torch, train, config, tc, state, X, Y, idx, eps,
         # in units of the 2e-2 limit below
         grad_rel = 2e-2 * max(e["kernels"] / max(2e-2, 2.0 * e["plain"])
                               for e in exact.values())
-    # same rounding classes on both paths; the f32 sums run in another
-    # order, and a bf16 rounding boundary crossed by dt or ga moves one
-    # product term by a bf16 unit: the bf16 class of the reference's
-    # tolerance (tests/test_pallas_epilogue.py:115-117)
-    if not (loss_rel <= 1e-4 and grad_rel <= 2e-2):
+    if not (loss_rel <= STEP_LOSS_TOL and grad_rel <= STEP_GRAD_TOL):
         fail(f"train step: kernels vs plain versions differ: loss {loss_rel} "
              f"(tol 1e-4 rel), gradients {grad_rel} (tol 2e-2 of max|g|): "
              + json.dumps(exact or by_leaf))
@@ -2206,17 +2241,6 @@ def _restore(torch, tmp, ckpt):
     return config, params, data
 
 
-def _layer_noise(torch, config, S, B, gen):
-    """Per-layer standard normals of a propagate (``models.dgp.propagate``
-    ``eps``): [S, B, d_w] for a latent layer, [S, B, d_out] for an inner
-    GP layer, none for the final layer."""
-    from dgps_with_iwvi_torch.models.layers import LVLayerConfig
-
-    return [None if getattr(c, "final", False) else torch.randn(
-        (S, B, c.d_w if isinstance(c, LVLayerConfig) else c.d_out),
-        generator=gen, device="cuda") for c in config.layers]
-
-
 def _full_cov_check(torch, config, params, X) -> dict:
     """predict_f_full_cov at FULL_COV_ROWS rows and S=FULL_COV_SAMPLES on
     the card: its diagonal against predict_f's variance on the same noise,
@@ -2227,11 +2251,12 @@ def _full_cov_check(torch, config, params, X) -> dict:
     smallest eigenvalue >= -1e-4 of the largest diagonal."""
     import dataclasses
 
-    from dgps_with_iwvi_torch.models import predict_f, predict_f_full_cov
+    from dgps_with_iwvi_torch.models import (layer_noise, predict_f,
+                                             predict_f_full_cov)
 
     S = FULL_COV_SAMPLES
-    eps = _layer_noise(torch, config, S, X.shape[0],
-                       torch.Generator(device="cuda").manual_seed(5))
+    eps = layer_noise(config, (S,), X.shape[0],
+                      torch.Generator(device="cuda").manual_seed(5))
     exact = dataclasses.replace(config, var_precision="highest",
                                 solve_precision="highest")
     with torch.no_grad():
@@ -2273,13 +2298,14 @@ def _sampling_check(torch, build, config, params, X) -> dict:
     fmean + safe_sqrt(fvar) z on the same noise at f32 rounding (1e-6 of
     the largest |draw|); both draws' sample means are within 5 standard
     errors of the mixture mean at every row."""
-    from dgps_with_iwvi_torch.models import (predict_f, predict_f_samples,
+    from dgps_with_iwvi_torch.models import (layer_noise, predict_f,
+                                             predict_f_samples,
                                              predict_y_samples)
     from dgps_with_iwvi_torch.ops import conditionals, likelihoods
 
     S, B = HARNESS_SAMPLES, X.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(6)
-    eps = _layer_noise(torch, config, S, B, gen)
+    eps = layer_noise(config, (S,), B, gen)
     z = torch.randn((S, B, 1), generator=gen, device="cuda")
     with torch.no_grad():
         build.reset_launches()
@@ -2556,6 +2582,453 @@ def breadth_phase(torch, card: str, tmp: str) -> dict:
           f"full cov {json.dumps(rec['full_cov'])}; sampling "
           f"{json.dumps(rec['sampling'])}; on {card}")
     return rec
+
+
+PARALLEL_RANKS = 2
+PARALLEL_MESHES = [(2, 1), (1, 2)]        # (n_dp, n_k) of phase 10(a)
+PARALLEL_STEPS, PARALLEL_RESUME_AT, PARALLEL_CHUNK = 100, 50, 25
+PARALLEL_CLI_STEPS, NCCL_STEPS = 200, 10
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_EVAL_RTOL = 1e-6   # the reference's float32 gate, test_parallel.py:362
+PARALLEL_STEP_WANT = {"chol_inv": 2, "epilogue:epi": 2, "epilogue_bwd:epi": 2}
+
+
+def _check(ok: bool, msg: str) -> None:
+    """fail() inside a rank: the rank exits non-zero, which the parent
+    sees and fails on."""
+    if not ok:
+        fail(f"parallel rank: {msg}")
+
+
+def _counted(build, counts: dict, label: str, fn):
+    """Run fn with every launch count set to 0 just before and read just
+    after; the counts go to counts[label]. Returns fn's result."""
+    build.reset_launches()
+    out = fn()
+    counts[label] = {k: v for k, v in _path_counts(build).items() if v}
+    return out
+
+
+def _want_counts(counts: dict, label: str, want: dict) -> None:
+    _check(counts[label] == want,
+           f"{label}: launches {counts[label]}, want {want}")
+
+
+def _parallel_step_checks(torch, build, counts, config, params, X, Y, mesh,
+                          tag: str) -> dict:
+    """Phase 10(a) on one mesh: one sharded step with injected draws
+    (launches counted, K1, K2 and K3 twice each), then, from the same
+    state and draws, the summed loss and gradients held to the same step
+    in one process on the card and to the sharded step on the plain
+    versions, at the step gates."""
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.models import layer_noise
+    from dgps_with_iwvi_torch.parallel import sharding
+    from dgps_with_iwvi_torch.parallel.mesh import coordinate, mesh_shape
+
+    n_dp, n_k = mesh_shape(mesh)
+    i_dp, i_k = coordinate(mesh)
+    N, K = X.shape[0], config.num_iw_samples
+    n_local, b_local, k_local = -(-N // n_dp), B_TRAIN // n_dp, K // n_k
+    g = torch.Generator(device="cuda").manual_seed(0)
+    idx = [torch.randint(0, n_local, (b_local,), generator=g, device="cuda")
+           for _ in range(n_dp)]
+    eps = layer_noise(config, (K,), B_TRAIN, g)
+    gidx = torch.cat([sharding.global_row_ids(i, r, n_local, N)
+                      for i, r in enumerate(idx)])
+    my_eps = [None if e is None else
+              e[i_k * k_local:(i_k + 1) * k_local,
+                i_dp * b_local:(i_dp + 1) * b_local] for e in eps]
+    tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                           minibatch_size=B_TRAIN)
+    init, step, _, _ = sharding.make_parallel_trainer(config, tc, mesh)
+    Xl, Yl = sharding.shard_arrays(mesh, X, Y)
+    state = sharding.replicate(mesh, init(params))
+    _counted(build, counts, tag, lambda: step(state, Xl, Yl, idx=idx[i_dp],
+                                              eps=my_eps))
+    _want_counts(counts, tag, PARALLEL_STEP_WANT)
+
+    state = sharding.replicate(mesh, init(params))
+
+    def sharded():
+        return _step_leaves(*sharding.loss_and_grads(
+            config, tc, mesh, state, Xl, Yl, idx=idx[i_dp], eps=my_eps))
+
+    got = sharded()
+    with build.plain_versions():
+        plain = sharded()
+    single = _step_leaves(*train.loss_and_grads(
+        config, tc, train.make_trainer(config, tc)[0](params), X, Y,
+        idx=gidx, eps=eps))
+    out = {}
+    for name, ref in (("vs_one_process", single), ("vs_plain", plain)):
+        loss_rel, by_leaf = _step_gaps(got, ref)
+        _check(loss_rel <= STEP_LOSS_TOL
+               and max(by_leaf.values()) <= STEP_GRAD_TOL,
+               f"{tag} {name}: loss {loss_rel}, gradients "
+               f"{max(by_leaf.values())} (tol {STEP_LOSS_TOL}, "
+               f"{STEP_GRAD_TOL}): {json.dumps(by_leaf)}")
+        out[name] = {"loss_rel_err": loss_rel,
+                     "max_grad_err_over_max_grad": max(by_leaf.values())}
+    out["loss"] = float(got[0])
+    return out
+
+
+def _parallel_pallas_check(torch, build, counts, config, params, X, Y,
+                           mesh) -> dict:
+    """Phase 10(a) with use_pallas on the 2x1 mesh: one generator-driven
+    sharded step (the inner layer's noise drawn inside K5 'sample' from
+    each rank's own noise generator), counted, then its summed loss and
+    gradients against the same step in one process: the mean over 'dp' of
+    the single-device step on each rank's rows with that rank's noise
+    generator (scale N/B_local each, so the mean is the global step)."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.parallel import sharding
+    from dgps_with_iwvi_torch.parallel.mesh import mesh_shape
+
+    cfg = dataclasses.replace(config, use_pallas=True)
+    n_dp, _ = mesh_shape(mesh)
+    N = X.shape[0]
+    n_local, b_local = -(-N // n_dp), B_TRAIN // n_dp
+    tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                           minibatch_size=B_TRAIN)
+    init, step, _, _ = sharding.make_parallel_trainer(cfg, tc, mesh)
+    Xl, Yl = sharding.shard_arrays(mesh, X, Y)
+    state = sharding.replicate(mesh, init(params))
+    _counted(build, counts, "use_pallas_2x1", lambda: step(
+        state, Xl, Yl, torch.Generator().manual_seed(7)))
+    _want_counts(counts, "use_pallas_2x1", {
+        "conditional:sample": 1, "epilogue:epi": 1, "epilogue_bwd:epi": 1,
+        "chol_inv": 2})
+
+    state = sharding.replicate(mesh, init(params))
+    got = _step_leaves(*sharding.loss_and_grads(
+        cfg, tc, mesh, state, Xl, Yl, torch.Generator().manual_seed(7)))
+    seed = sharding.draw_step_seed(torch.Generator().manual_seed(7))
+    tc_rank = dataclasses.replace(tc, minibatch_size=b_local)
+    state1 = train.make_trainer(cfg, tc_rank)[0](params)
+    parts = []
+    for i in range(n_dp):
+        rows, noise = sharding.rank_generators(seed, i, 0, "cuda")
+        r = torch.randint(0, n_local, (b_local,), generator=rows,
+                          device="cuda")
+        parts.append(_step_leaves(*train.loss_and_grads(
+            cfg, tc_rank, state1, X, Y, noise,
+            idx=sharding.global_row_ids(i, r, n_local, N))))
+    single = (sum(float(p[0]) for p in parts) / n_dp,
+              [(name, sum(p[1][j][1] for p in parts) / n_dp)
+               for j, (name, _) in enumerate(parts[0][1])])
+    loss_rel, by_leaf = _step_gaps(got, single)
+    _check(loss_rel <= STEP_LOSS_TOL
+           and max(by_leaf.values()) <= STEP_GRAD_TOL,
+           f"use_pallas 2x1 vs one process: loss {loss_rel}, gradients "
+           f"{max(by_leaf.values())}: {json.dumps(by_leaf)}")
+    return {"loss": float(got[0]), "vs_one_process": {
+        "loss_rel_err": loss_rel,
+        "max_grad_err_over_max_grad": max(by_leaf.values())}}
+
+
+def _parallel_fit(torch, build, counts, config, params, X, Y, mesh,
+                  tmp) -> dict:
+    """Phase 10(b): fit(mesh=) for PARALLEL_STEPS steps on the 1x2 mesh
+    (K split over the ranks) in chunks of PARALLEL_CHUNK, saving at
+    PARALLEL_RESUME_AT; the replicas bitwise equal after every chunk; the
+    loss falling; then the run resumed from that checkpoint, whose end
+    state equals the straight run's bit for bit. Returns the trained
+    parameters too."""
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.parallel import sharding
+    from dgps_with_iwvi_torch.training.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+
+    tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                           minibatch_size=B_TRAIN, iterations=PARALLEL_STEPS,
+                           steps_per_call=PARALLEL_CHUNK)
+    ckpt = os.path.join(tmp, "parallel_fit")
+    gen = torch.Generator().manual_seed(11)
+    seen = []
+
+    def callback(step, loss, state):
+        seen.append((step, loss, sharding.replicas_agree(mesh, state)))
+        if step == PARALLEL_RESUME_AT:
+            save_checkpoint(ckpt, step, state, gen, mesh=mesh)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, state = _counted(build, counts, "fit", lambda: train.fit(
+        gen, config, params, X, Y, tc, callback=callback, mesh=mesh))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _want_counts(counts, "fit", {"chol_inv": 2 * PARALLEL_STEPS + 1,
+                                 "epilogue:epi": 2 * PARALLEL_STEPS,
+                                 "epilogue_bwd:epi": 2 * PARALLEL_STEPS})
+    _check(all(agree for _, _, agree in seen),
+           f"fit: replicas differ after a chunk: {seen}")
+    _check(seen[-1][1] < seen[0][1], f"fit: the loss did not fall: {seen}")
+    straight = sharding.state_digest(state)
+
+    init = sharding.make_parallel_trainer(config, tc, mesh)[0]
+    like = {"state": init(params), "generator": torch.Generator()}
+    restored = restore_checkpoint(ckpt, PARALLEL_RESUME_AT, like, mesh=mesh)
+    rest_steps = PARALLEL_STEPS - PARALLEL_RESUME_AT
+    _, resumed = _counted(build, counts, "fit_resumed", lambda: train.fit(
+        restored["generator"], config, params, X, Y, tc,
+        state=restored["state"], mesh=mesh))
+    _want_counts(counts, "fit_resumed", {"chol_inv": 2 * rest_steps + 1,
+                                         "epilogue:epi": 2 * rest_steps,
+                                         "epilogue_bwd:epi": 2 * rest_steps})
+    _check(sharding.state_digest(resumed) == straight,
+           "fit: the run resumed from step "
+           f"{PARALLEL_RESUME_AT} differs from the straight run")
+    return {"steps": PARALLEL_STEPS, "seconds": seconds,
+            "steps_per_s": PARALLEL_STEPS / seconds,
+            "chunk_losses": [loss for _, loss, _ in seen],
+            "replicas_bitwise_equal_every_chunk": True,
+            "resumed_from": PARALLEL_RESUME_AT,
+            "resumed_bitwise_equal": True}, trained
+
+
+def _parallel_evaluate(torch, build, counts, config, trained, data,
+                       mesh) -> dict:
+    """Phase 10(c): evaluate(mesh=) on the test split against the
+    unsharded evaluate on the card (PARALLEL_EVAL_RTOL), K1 and K4 on
+    each rank; and the cost of drawing a chunk's whole noise on each
+    rank, timed against drawing the rank's share."""
+    from dgps_with_iwvi_torch.evaluation import evaluate
+    from dgps_with_iwvi_torch.models import layer_noise
+
+    kw = dict(y_std=data.Y_std, num_samples=HARNESS_SAMPLES, device="cuda")
+    Xt = torch.as_tensor(data.X_test).float()
+    Yt = torch.as_tensor(data.Y_test).float()
+    got = _counted(build, counts, "evaluate", lambda: evaluate(
+        trained, config, Xt, Yt, 3, mesh=mesh, **kw))
+    _want_counts(counts, "evaluate", {"chol_inv": 1, "serve_cond:sample": 1,
+                                      "serve_cond:infer": 1})
+    ref = evaluate(trained, config, Xt, Yt, 3, **kw)
+    gaps = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+    _check(max(gaps.values()) <= PARALLEL_EVAL_RTOL,
+           f"evaluate(mesh=) {got} vs unsharded {ref}")
+    n = Xt.shape[0]
+    g = torch.Generator(device="cuda")
+    whole = time_ms(torch, lambda: layer_noise(
+        config, (HARNESS_SAMPLES,), n, g.manual_seed(0)), 20)
+    share = time_ms(torch, lambda: layer_noise(
+        config, (HARNESS_SAMPLES,), -(-n // PARALLEL_RANKS),
+        g.manual_seed(0)), 20)
+    return {"metrics": got, "unsharded": ref, "rel_gaps": gaps,
+            "tol": f"rtol {PARALLEL_EVAL_RTOL}",
+            "noise_ms_whole_chunk": whole, "noise_ms_rank_share": share,
+            "rows": n}
+
+
+def _parallel_cli(torch, build, counts, tmp, rank: int) -> dict:
+    """Phase 10(d): experiments.main.run --shard --n_k 2 (one row, from
+    rank 0; test loglik above the untrained model's), then
+    experiments.serve.run --shard on its checkpoint, whose .npz equals
+    the unsharded scoring of the same rows within PARALLEL_EVAL_RTOL of
+    each array's largest |value|."""
+    import torch.distributed as dist
+
+    from dgps_with_iwvi_torch.evaluation import Database
+    from dgps_with_iwvi_torch.experiments import main as harness
+    from dgps_with_iwvi_torch.experiments import serve
+
+    db = os.path.join(tmp, "parallel.db")
+    ckpt = os.path.join(tmp, "parallel_cli")
+    flags = ["--iterations", str(PARALLEL_CLI_STEPS), "--data_dir",
+             os.path.join(tmp, "data"), "--results_db", db, "--ckpt_dir",
+             ckpt, "--ckpt_every", str(PARALLEL_CLI_STEPS), "--shard",
+             "--n_k", "2"]
+    args = harness.parse_args(FAMILY_ARGS + flags)
+    exp = harness.setup(args)
+    untrained = harness.evaluate_model(args, exp, exp.params)
+    chunks = -(-exp.data.X_test.shape[0] // EVAL_BATCH)
+    del exp
+    row = _counted(build, counts, "cli_train",
+                   lambda: harness.run(args))
+    steps = PARALLEL_CLI_STEPS
+    _want_counts(counts, "cli_train", {
+        "chol_inv": 2 * steps + 1 + chunks + 1, "epilogue:epi": 2 * steps,
+        "epilogue_bwd:epi": 2 * steps, "serve_cond:sample": chunks + 1,
+        "serve_cond:infer": chunks + 1})
+    _check(row["test_loglik"] > untrained["test_loglik"],
+           f"cli: test loglik {row['test_loglik']} not above the untrained "
+           f"{untrained['test_loglik']}")
+    dist.barrier()
+    n_rows = len(Database(db).read("kin8nm"))
+    _check(n_rows == 1, f"cli: {n_rows} results rows, want 1")
+
+    sharded = os.path.join(tmp, "parallel_sharded.npz")
+    single = os.path.join(tmp, "parallel_single.npz")
+    base = ["--dataset", "kin8nm", "--data_dir", os.path.join(tmp, "data"),
+            "--ckpt_dir", ckpt, "--num_predict_samples",
+            str(HARNESS_SAMPLES)]
+    _counted(build, counts, "cli_serve", lambda: serve.run(serve.parse_args(
+        base + ["--output", sharded, "--shard"])))
+    _want_counts(counts, "cli_serve", {"chol_inv": 3,
+                                       "serve_cond:sample": 2,
+                                       "serve_cond:infer": 2})
+    out = {"test_loglik": row["test_loglik"],
+           "untrained_test_loglik": untrained["test_loglik"],
+           "steps_per_s": row["steps_per_sec"], "results_rows": n_rows}
+    if rank == 0:
+        serve.run(serve.parse_args(base + ["--output", single]))
+        a, b = np.load(sharded), np.load(single)
+        _check(sorted(a.files) == sorted(b.files), "serve: other arrays")
+        gaps = {k: float(np.max(np.abs(a[k] - b[k]))
+                         / max(float(np.max(np.abs(b[k]))), 1e-30))
+                for k in a.files}
+        _check(max(gaps.values()) <= PARALLEL_EVAL_RTOL,
+               f"serve --shard vs unsharded: {gaps}")
+        out["serve_rel_gaps"] = gaps
+    dist.barrier()
+    return out
+
+
+def _nccl_world_of_one(torch, build, counts, config, params, X, Y,
+                       tmp) -> dict:
+    """Phase 10(e): a world of one rank on the NCCL backend runs one
+    fit(mesh=) chunk; its mean loss equals the single-device chunk's on
+    the same draws (each step's rows and noise from that step's seed, as
+    the sharded step derives them) at the step's loss gate."""
+    import torch.distributed as dist
+
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.parallel import make_mesh, sharding
+
+    tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                           minibatch_size=B_TRAIN, iterations=NCCL_STEPS,
+                           steps_per_call=NCCL_STEPS)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "nccl.store"), 1), rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        seen = []
+        _counted(build, counts, "nccl_fit", lambda: train.fit(
+            torch.Generator().manual_seed(13), config, params, X, Y, tc,
+            callback=lambda s, loss, st: seen.append(loss),
+            mesh=make_mesh(device="cuda")))
+    finally:
+        dist.destroy_process_group()
+    _want_counts(counts, "nccl_fit", {"chol_inv": 2 * NCCL_STEPS + 1,
+                                      "epilogue:epi": 2 * NCCL_STEPS,
+                                      "epilogue_bwd:epi": 2 * NCCL_STEPS})
+    init, step, _, _ = train.make_trainer(config, tc)
+    state = init(params)
+    gen = torch.Generator().manual_seed(13)
+    losses = []
+    for _ in range(NCCL_STEPS):
+        rows, noise = sharding.rank_generators(
+            sharding.draw_step_seed(gen), 0, 0, "cuda")
+        idx = torch.randint(0, X.shape[0], (B_TRAIN,), generator=rows,
+                            device="cuda")
+        state, loss = step(state, X, Y, noise, idx=idx)
+        losses.append(float(loss))
+    single = float(np.mean(losses))
+    rel = abs(seen[0] - single) / abs(single)
+    _check(rel <= STEP_LOSS_TOL, f"nccl: chunk mean loss {seen[0]} vs the "
+           f"single-device chunk's {single}")
+    return {"backend": backend, "steps": NCCL_STEPS,
+            "mean_loss": seen[0], "single_device_mean_loss": single,
+            "loss_rel_err": rel}
+
+
+def _parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 10, spawned by the parent: cuda:0, gloo through a
+    FileStore in `tmp`; writes its record to tmp/parallel_rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.models import BuildArgs, build_model
+    from dgps_with_iwvi_torch.ops.hopper import build
+    from dgps_with_iwvi_torch.parallel import make_mesh, sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "parallel.store"), world), rank=rank,
+        world_size=world)
+    counts, rec = {}, {"rank": rank}
+    try:
+        data = get_regression_data("kin8nm", 0,
+                                   data_dir=os.path.join(tmp, "data"))
+        X = torch.as_tensor(data.X_train).float().cuda()
+        Y = torch.as_tensor(data.Y_train).float().cuda()
+        config, params = build_model(0, BuildArgs(
+            configuration="LGG", mode="IW", num_inducing=M,
+            num_iw_samples=L_TRAIN), X, Y, device="cuda")
+        random_q(torch, params)
+        meshes = {shape: make_mesh(*shape, device="cuda")
+                  for shape in PARALLEL_MESHES}
+        sharding.replicate(meshes[(2, 1)], params)
+        rec["steps"] = {
+            f"{a}x{b}": _parallel_step_checks(
+                torch, build, counts, config, params, X, Y, meshes[(a, b)],
+                f"step_{a}x{b}") for a, b in PARALLEL_MESHES}
+        rec["use_pallas"] = _parallel_pallas_check(
+            torch, build, counts, config, params, X, Y, meshes[(2, 1)])
+        rec["fit"], trained = _parallel_fit(
+            torch, build, counts, config, params, X, Y, meshes[(1, 2)], tmp)
+        rec["evaluate"] = _parallel_evaluate(
+            torch, build, counts, config, trained, data, meshes[(1, 2)])
+        rec["cli"] = _parallel_cli(torch, build, counts, tmp, rank)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        rec["nccl"] = _nccl_world_of_one(torch, build, counts, config,
+                                         params, X, Y, tmp)
+    rec["counts"] = counts
+    rec["launches"] = {}
+    for section in counts.values():
+        for k, v in section.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
+    with open(os.path.join(tmp, f"parallel_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def parallel_phase(torch, card: str, tmp: str) -> dict:
+    """Phase 10: PARALLEL_RANKS ranks spawned on the one card (gloo, the
+    collectives through the host); each runs the checks of
+    ``_parallel_rank``. Fails if a rank fails, exits non-zero or outlasts
+    PARALLEL_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(_parallel_rank, args=(PARALLEL_RANKS, tmp),
+                             nprocs=PARALLEL_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"parallel: the ranks ran past {PARALLEL_TIMEOUT_S} s")
+    except ProcessException as e:
+        fail(f"parallel: a rank failed: {e}")
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(tmp, f"parallel_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    fits = [r["fit"]["chunk_losses"] for r in ranks]
+    if fits[0] != fits[1]:
+        fail(f"parallel: the ranks saw different losses: {fits}")
+    r0 = ranks[0]
+    print(f"parallel: fit(mesh=) 1x2, {r0['fit']['steps_per_s']:.1f} "
+          f"steps/s over {PARALLEL_STEPS} steps: two processes "
+          f"time-sliced on one card, gloo through the host (not a scaling "
+          f"figure); LGG IW K={L_TRAIN} M={M} B={B_TRAIN}; on {card}")
+    print(f"parallel: evaluate(mesh=) test loglik "
+          f"{r0['evaluate']['metrics']['test_loglik']:.6f} (unsharded "
+          f"{r0['evaluate']['unsharded']['test_loglik']:.6f}); CLI test "
+          f"loglik {r0['cli']['test_loglik']:.4f} (untrained "
+          f"{r0['cli']['untrained_test_loglik']:.4f}); NCCL world of one "
+          f"loss gap {r0['nccl']['loss_rel_err']:.2e}; on {card}")
+    return {"ranks": ranks,
+            "launches": [r["launches"] for r in ranks]}
 
 
 AB_ORDER = ("parent", "change", "change", "parent")
@@ -2851,6 +3324,10 @@ def main() -> int:
         rec["breadth"] = breadth_phase(torch, card, tmp)
         rec["breadth"]["phase_s"] = time.perf_counter() - t0
         print(f"breadth: phase 9 took {rec['breadth']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["parallel"] = parallel_phase(torch, card, tmp)
+        rec["parallel"]["phase_s"] = time.perf_counter() - t0
+        print(f"parallel: phase 10 took {rec['parallel']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -2881,7 +3358,9 @@ def main() -> int:
              "breadth_multiscale": rec["breadth"]["multiscale"]["launches"],
              "breadth_no_white": rec["breadth"]["no_white"]["launches"],
              "breadth_serve": rec["breadth"]["serve"]["launches"],
-             "breadth_predict": rec["breadth"]["sampling"]["launches"]}
+             "breadth_predict": rec["breadth"]["sampling"]["launches"],
+             **{f"parallel_rank{r}": counts for r, counts in
+                enumerate(rec["parallel"]["launches"])}}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -2904,6 +3383,7 @@ def main() -> int:
     print("serve CLI: " + json.dumps(rec["serve_cli"]))
     print("families: " + json.dumps(rec["families"]))
     print("breadth: " + json.dumps(rec["breadth"]))
+    print("parallel: " + json.dumps(rec["parallel"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

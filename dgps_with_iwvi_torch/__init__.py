@@ -14,18 +14,19 @@ first use (``ops/hopper/build.py``). Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; on a CPU tensor each kernel wrapper
 takes its plain PyTorch version.
 
-Ported so far: the serving path (``models.predict_y_and_log_density`` and
-``serving.Scorer``), the single-device trainer (``training``: the
-objectives, natural gradients, ``make_trainer``, ``fit``, checkpoints and
-the monitor), the fused-conditional routes (``DGPConfig.use_pallas`` and
-``serve_pallas``), so every Pallas kernel of the reference has a
-counterpart, and the UCI regression harness: ``data``, ``evaluation`` and
-``experiments.main`` (``python -m dgps_with_iwvi_torch.experiments.main``).
-The serving export, the likelihood and kernel families and the parallel
-trainer come in later slices (ROADMAP.md).
+Ported: the serving path (``models.predict_y_and_log_density`` and
+``serving.Scorer``, the ``torch.export`` artifact), the single-device
+trainer (``training``: the objectives, natural gradients,
+``make_trainer``, ``fit``, checkpoints and the monitor), the
+fused-conditional routes (``DGPConfig.use_pallas`` and ``serve_pallas``),
+so every Pallas kernel of the reference has a counterpart, the UCI
+harness (``data``, ``evaluation``, ``experiments.main`` and ``serve``),
+the kernel and likelihood families and the rest of the reference's
+breadth, and several ranks over ``torch.distributed`` (``parallel``: the
+('dp', 'k') mesh, the sharded trainer, sharded evaluation and serving).
 """
 
 __version__ = "0.1.0"
 
-from . import (data, evaluation, models, ops, params, serving,  # noqa: F401
-               training)
+from . import (data, evaluation, models, ops, parallel,  # noqa: F401
+               params, serving, training)

@@ -17,6 +17,13 @@ chunk's first row: the counterpart of the reference's
 queued and come to the host in one copy. The loop runs under
 ``torch.no_grad()``, so on the card ``DGPConfig.serve_pallas="auto"``
 takes the inference kernel K4.
+
+Under a mesh (reference l.24-66) each chunk's rows are split over every
+rank, params replicated, and the outputs gathered before the metrics. A
+rank draws its chunk's whole noise from the chunk's generator and keeps
+its own rows' share (``models.dgp.layer_noise``), so the sharded metrics
+equal the unsharded ones; each rank thus draws P times its share of the
+noise. The kernels run on every rank as they do unsharded (K4 included).
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import predict_y_and_log_density
+from ..models import layer_noise, predict_y_and_log_density
+from ..parallel.distributed import rank, world_size
+from ..parallel.sharding import gather_rows
 from ..params import params_to_device
 
 
@@ -47,6 +56,54 @@ def _batch_eval(params, config, xb, yb, seed: int, start: int,
     return ld, mean
 
 
+def _piece_eval(params, config, xb, yb, seed: int, start: int,
+                num_samples: int, rows: slice):
+    """The same for the chunk's `rows` only (padded with zero rows and
+    noise to the slice's length), with the chunk's noise for those rows:
+    the chunk's whole noise is drawn and sliced."""
+    gen = torch.Generator(device=xb.device).manual_seed(
+        chunk_seed(seed, start))
+    noise = layer_noise(config, (num_samples,), xb.shape[0], gen,
+                        dtype=xb.dtype)
+    eps = [None if e is None else piece_rows(e, rows, 1) for e in noise]
+    (mean, _), ld = predict_y_and_log_density(
+        params, config, piece_rows(xb, rows, 0), piece_rows(yb, rows, 0),
+        None, num_samples, eps=eps)
+    return ld, mean
+
+
+def piece_rows(t: torch.Tensor, rows: slice, dim: int) -> torch.Tensor:
+    """t's `rows` along `dim`, zero-padded to the slice's length."""
+    part = t.narrow(dim, rows.start, max(min(rows.stop, t.shape[dim])
+                                         - rows.start, 0))
+    pad = (rows.stop - rows.start) - part.shape[dim]
+    if not pad:
+        return part
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([part, t.new_zeros(shape)], dim)
+
+
+def rank_rows(batch: int) -> slice:
+    """This rank's rows of a batch split over every rank of the world:
+    [r * piece, (r + 1) * piece) with piece = ceil(batch / ranks); rows
+    past the batch are padding."""
+    piece = -(-batch // world_size())
+    return slice(rank() * piece, (rank() + 1) * piece)
+
+
+def merge_rows(gathered: np.ndarray, batch: int) -> np.ndarray:
+    """The inverse of the split: gathered [P, n_batches * piece, ...] (each
+    rank's pieces of every batch, in order) -> [n_batches * batch, ...]
+    in row order."""
+    P, n = gathered.shape[:2]
+    piece = -(-batch // P)
+    tail = gathered.shape[2:]
+    g = gathered.reshape((P, n // piece, piece) + tail).swapaxes(0, 1)
+    return g.reshape((n // piece, P * piece) + tail)[:, :batch].reshape(
+        (-1,) + tail)
+
+
 def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
              num_samples: int = 100, batch_size: int = 4096,
              likelihood: str = "gaussian", mesh=None,
@@ -63,16 +120,18 @@ def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
     arrays or tensors in the model's dtype (standardized for gaussian and
     student_t); y_std the train split's label scale. Runs on `device`
     (the card unless the caller asks for the CPU); params are moved
-    there."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded evaluation is not ported yet (ROADMAP queue 8)")
+    there.
+
+    mesh: a ('dp', 'k') mesh (``parallel.make_mesh``): every chunk's rows
+    are split over all its ranks and the outputs gathered; the metrics
+    equal the unsharded ones and are the same on every rank."""
     device = resolve_device(device)
     params = params_to_device(params, device)
     X = torch.as_tensor(X_test).to(device)
     Y = torch.as_tensor(Y_test).to(device)
     n = X.shape[0]
     bs = min(batch_size, n)
+    rows = None if mesh is None else rank_rows(bs)
 
     outs = []
     with torch.no_grad():
@@ -82,10 +141,20 @@ def evaluate(params, config, X_test, Y_test, seed: int, *, y_std,
             if pad:  # pad to the chunk size, mask after
                 xb = torch.cat([xb, xb.new_zeros((pad,) + xb.shape[1:])])
                 yb = torch.cat([yb, yb.new_zeros((pad,) + yb.shape[1:])])
-            ld, mean = _batch_eval(params, config, xb, yb, seed, start,
-                                   num_samples)
-            outs.append(torch.cat([ld[:bs - pad, None], mean[:bs - pad]], 1))
-        host = torch.cat(outs).cpu().numpy()    # the one copy to the host
+            if rows is None:
+                ld, mean = _batch_eval(params, config, xb, yb, seed, start,
+                                       num_samples)
+                outs.append(torch.cat([ld[:bs - pad, None],
+                                       mean[:bs - pad]], 1))
+            else:
+                ld, mean = _piece_eval(params, config, xb, yb, seed, start,
+                                       num_samples, rows)
+                outs.append(torch.cat([ld[:, None], mean], 1))
+        out = torch.cat(outs)
+        if mesh is None:
+            host = out.cpu().numpy()            # the one copy to the host
+        else:
+            host = merge_rows(gather_rows(mesh, out).cpu().numpy(), bs)[:n]
     lds, means = host[:, 0], host[:, 1:]
     ys = np.asarray(torch.as_tensor(Y_test).cpu())   # [n, d_y]
     ld_norm = float(lds.mean())

@@ -10,8 +10,10 @@ inducing-feature family and the non-whitened parameterization), plus
 natgrad + Adam training with the monitor and checkpoints -> mixture NLL /
 RMSE (and accuracy) evaluation -> one row of the bayesian_benchmarks
 sqlite schema. Runs on the card unless ``--device cpu`` is given.
-``--shard``, which the port cannot serve yet, raises NotImplementedError,
-naming its ROADMAP item, before any work.
+``--shard`` trains and evaluates over the ranks of a launch (``torchrun
+--nproc_per_node N``, or a process group the caller made): a ('dp', 'k')
+mesh of (N // n_k) x n_k ranks (``parallel``); the results row, the
+checkpoints, TensorBoard and the monitor's prints come from rank 0 only.
 
 Example (the paper's flagship configuration):
     python -m dgps_with_iwvi_torch.experiments.main --dataset kin8nm \\
@@ -39,6 +41,8 @@ from dgps_with_iwvi_torch.models import (BuildArgs, DGPConfig, build_model,
                                          elbo, parse_prior_flag,
                                          save_build_args)
 from dgps_with_iwvi_torch.ops import kernels
+from dgps_with_iwvi_torch.parallel import distributed, make_mesh
+from dgps_with_iwvi_torch.parallel.mesh import mesh_shape
 from dgps_with_iwvi_torch.training import TrainConfig, fit, make_trainer
 from dgps_with_iwvi_torch.training.checkpoint import (latest_step,
                                                       restore_checkpoint,
@@ -137,10 +141,14 @@ def parse_args(argv=None):
     p.add_argument("--q_diag", action="store_true",
                    help="diagonal q(u) covariance")
     p.add_argument("--shard", action="store_true",
-                   help="train and evaluate over all local devices; not "
-                        "ported")
+                   help="train and evaluate over the ranks of a torchrun "
+                        "launch: ('dp','k') mesh, minibatch rows over 'dp', "
+                        "IW/MC samples over 'k', summed gradients "
+                        "(parallel/sharding.py); a world of one rank runs "
+                        "unsharded")
     p.add_argument("--n_k", type=int, default=1,
-                   help="with --shard: devices along the IW-sample axis")
+                   help="with --shard: ranks along the IW-sample mesh axis "
+                        "(must divide K); the rest go to 'dp'")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps_per_call", type=int, default=500,
                    help="steps per chunk between host syncs")
@@ -165,12 +173,7 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise for a flag the port cannot serve yet, naming the ROADMAP
-    item that ports it, before any work."""
-    if args.shard:
-        raise NotImplementedError(
-            "--shard: the sharded trainer is not ported yet (ROADMAP "
-            "queue 8)")
+    """Raise for a flag combination the port refuses, before any work."""
     if args.dtype == "float64" and torch.device(args.device).type == "cuda":
         raise ValueError("--dtype float64: the Hopper kernels are float32; "
                          "run float64 with --device cpu")
@@ -254,16 +257,36 @@ def setup(args) -> Experiment:
     return Experiment(data, build, config, params, X, Y, device, dtype)
 
 
-def evaluate_model(args, exp: Experiment, params) -> dict:
+def evaluate_model(args, exp: Experiment, params, mesh=None) -> dict:
     """Test metrics of `params` on the run's test split (evaluate's noise
-    from the run's eval seed)."""
+    from the run's eval seed), its rows split over `mesh` if given."""
     data = exp.data
     return evaluate(
         params, exp.config,
         torch.as_tensor(data.X_test).to(exp.dtype),
         torch.as_tensor(data.Y_test).to(exp.dtype), seeds(args.seed)[2],
         y_std=data.Y_std, num_samples=args.num_predict_samples,
-        likelihood=args.likelihood, device=exp.device)
+        likelihood=args.likelihood, mesh=mesh, device=exp.device)
+
+
+def shard_mesh(args, n_k: int | None = None):
+    """The run's ('dp', 'k') mesh under --shard (n_k ranks on 'k', default
+    --n_k), or None: joins torchrun's process group (or keeps the
+    caller's) before any CUDA tensor exists; a world of one runs
+    unsharded, as the reference does with one device."""
+    if not args.shard:
+        return None
+    distributed.initialize(device=args.device)
+    world = distributed.world_size()
+    if world == 1:
+        print("[shard] single rank — running unsharded")
+        return None
+    mesh = make_mesh(n_k=args.n_k if n_k is None else n_k,
+                     device=args.device)
+    if distributed.rank() == 0:
+        n_dp, n_k = mesh_shape(mesh)
+        print(f"[shard] ('dp','k') mesh {n_dp}x{n_k} over {world} ranks")
+    return mesh
 
 
 def run(args) -> dict:
@@ -274,15 +297,19 @@ def run(args) -> dict:
 
 
 def _run(args) -> dict:
+    mesh = shard_mesh(args)
+    lead = mesh is None or distributed.rank() == 0   # writes and prints
     exp = setup(args)
     config, params, X, Y, device = (exp.config, exp.params, exp.X, exp.Y,
                                     exp.device)
     _, train_seed, eval_seed = seeds(args.seed)
-    if args.ckpt_dir:
+    if args.ckpt_dir and lead:
         # the model's structure beside the checkpoints
         save_build_args(args.ckpt_dir, exp.build, natgrad=args.natgrad)
-    print(f"[model] {args.configuration} mode={config.objective} M={args.M} "
-          f"K={args.K} N={exp.data.N} D={exp.data.D} on {device}")
+    if lead:
+        print(f"[model] {args.configuration} mode={config.objective} "
+              f"M={args.M} K={args.K} N={exp.data.N} D={exp.data.D} on "
+              f"{device}")
 
     tc = TrainConfig(
         lr=args.lr, gamma=args.gamma, gamma_warmup=args.gamma_warmup,
@@ -290,16 +317,19 @@ def _run(args) -> dict:
         minibatch_size=args.minibatch_size, iterations=args.iterations,
         steps_per_call=args.steps_per_call,
         solve_bwd_precision=args.solve_bwd_precision)
-    mon = Monitor(print_every=args.print_every, log_dir=args.log_dir,
+    mon = Monitor(print_every=args.print_every if lead else 0,
+                  log_dir=args.log_dir if lead else None,
                   scalars_fn=lambda state: hyperparameter_scalars(
                       state.rest, config, tc=tc, step=state.step))
-    gen = torch.Generator(device=device).manual_seed(train_seed)
+    # sharded: the CPU generator every rank holds (parallel/sharding.py)
+    gen = torch.Generator(device="cpu" if mesh else device).manual_seed(
+        train_seed)
     last_ckpt = [0]
 
     def callback(step, mean_loss, state):
         mon(step, mean_loss, state)
         if args.ckpt_dir and step - last_ckpt[0] >= args.ckpt_every:
-            save_checkpoint(args.ckpt_dir, step, state, gen)
+            save_checkpoint(args.ckpt_dir, step, state, gen, mesh=mesh)
             last_ckpt[0] = step
 
     state0 = None
@@ -308,9 +338,11 @@ def _run(args) -> dict:
         if step is not None:
             like = {"state": make_trainer(config, tc)[0](params),
                     "generator": gen}
-            state0 = restore_checkpoint(args.ckpt_dir, step, like)["state"]
+            state0 = restore_checkpoint(args.ckpt_dir, step, like,
+                                        mesh=mesh)["state"]
             last_ckpt[0] = step
-            print(f"[resume] restored step {step} from {args.ckpt_dir}")
+            if lead:
+                print(f"[resume] restored step {step} from {args.ckpt_dir}")
 
     prof = contextlib.nullcontext()
     if args.profile_dir:
@@ -322,18 +354,18 @@ def _run(args) -> dict:
     try:
         with prof:
             trained, _ = fit(gen, config, params, X, Y, tc,
-                             callback=callback, state=state0)
+                             callback=callback, state=state0, mesh=mesh)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
     finally:
         mon.close()
     train_time = time.time() - t0
-    if args.profile_dir:
+    if args.profile_dir and lead:
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir,
                                               "trace.json"))
 
-    metrics = evaluate_model(args, exp, trained)
+    metrics = evaluate_model(args, exp, trained, mesh)
     nb = min(args.minibatch_size, X.shape[0])
     with torch.no_grad():
         final_elbo = float(elbo(
@@ -364,6 +396,8 @@ def _run(args) -> dict:
                         if device.type == "cuda" else "cpu"),
         "train_time_s": train_time,
     }
+    if not lead:
+        return row
     Database(args.results_db).write_result(row)
     acc = (f"test_accuracy={metrics['test_accuracy']:.4f} "
            if "test_accuracy" in metrics else "")

@@ -32,6 +32,10 @@ def parse_args(argv=None):
     p.add_argument("--M", type=int, default=128)
     p.add_argument("--iterations", type=int, default=20000)
     p.add_argument("--results_db", default="results.db")
+    p.add_argument("--skip_existing", dest="skip_existing",
+                   action="store_true", default=True,
+                   help="skip the cells already in --results_db (the "
+                        "default, as in the reference)")
     p.add_argument("--no_skip_existing", dest="skip_existing",
                    action="store_false",
                    help="run every cell of the grid, also those already in "

@@ -16,7 +16,10 @@ kernels.
 
 Batches are fixed-size and padded, ``--depth`` of them in flight. Batch
 noise follows the batch's first row, as evaluation's chunks do
-(``evaluation.metrics.chunk_seed``).
+(``evaluation.metrics.chunk_seed``). ``--shard`` under ``torchrun
+--nproc_per_node N`` splits every batch's rows over the N ranks, each
+with the batch's noise for its rows, and gathers them: the per-point
+outputs equal the unsharded ones, and rank 0 writes the file.
 
 ``--export PATH`` freezes the scorer into one ``torch.export`` artifact
 (``serving.export_scorer``: stock ops, parameters and statistics baked
@@ -44,10 +47,14 @@ import numpy as np
 import torch
 
 from dgps_with_iwvi_torch.device import resolve_device
-from dgps_with_iwvi_torch.evaluation.metrics import chunk_seed
-from dgps_with_iwvi_torch.experiments.main import load_data, seeds
-from dgps_with_iwvi_torch.models import (BuildArgs, build_model,
+from dgps_with_iwvi_torch.evaluation.metrics import (chunk_seed, merge_rows,
+                                                     piece_rows, rank_rows)
+from dgps_with_iwvi_torch.experiments.main import (load_data, seeds,
+                                                   shard_mesh)
+from dgps_with_iwvi_torch.models import (BuildArgs, build_model, layer_noise,
                                          load_build_args)
+from dgps_with_iwvi_torch.parallel import distributed
+from dgps_with_iwvi_torch.parallel.sharding import gather_rows
 from dgps_with_iwvi_torch.serving import (NormalizationStats, export_scorer,
                                           fixed_batches, load_scorer,
                                           make_scorer_fn, save_scorer,
@@ -118,9 +125,11 @@ def parse_args(argv=None):
                         "this rounds the inputs themselves (~3 decimal "
                         "digits), unlike the output-only --transport")
     p.add_argument("--shard", action="store_true",
-                   help="shard scoring rows over all visible cards; with "
-                        "one card it does nothing, over several it is not "
-                        "ported yet")
+                   help="shard scoring rows over the ranks of a torchrun "
+                        "launch (params replicated, each batch's noise kept "
+                        "per row): per-point outputs equal the unsharded "
+                        "ones; a world of one rank does nothing. --export "
+                        "and --from_export stay unsharded")
     p.add_argument("--data_dir", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch "
@@ -248,29 +257,54 @@ def _restore(args, data, device):
     return config, params_fn(state), step
 
 
-def _score_live(args, config, params, Xn, Yn, d_y: int, device) -> tuple:
+def _score_live(args, config, params, Xn, Yn, d_y: int, device,
+                mesh=None) -> tuple:
     """(outputs, seconds): the standardized table in fixed padded batches
     of --batch_size through the kernels (``serving.score_table``, --depth
     in flight, results narrowed to --transport), each batch's noise from
-    the generator seeded by its first row, as evaluation's chunks."""
+    the generator seeded by its first row, as evaluation's chunks. Under a
+    mesh each rank scores its piece of every batch with the batch's noise
+    for those rows, and the pieces are gathered on every rank."""
     n, d_in = Xn.shape
-    fn = make_scorer_fn(params, config, args.num_predict_samples,
-                        device=device)
-    batches = fixed_batches(n, min(args.batch_size, n))
+    S = args.num_predict_samples
+    fn = make_scorer_fn(params, config, S, device=device)
+    bs = min(args.batch_size, n)
     eval_seed = seeds(args.seed)[2]
+    starts = [start for start, _, _ in fixed_batches(n, bs)]
+    if mesh is None:
+        def call(i, xb, yb):
+            return fn(xb, yb, chunk_seed(eval_seed, starts[i]))
+        batches = fixed_batches(n, bs)
+    else:
+        rows = rank_rows(bs)
+        piece = rows.stop - rows.start
 
-    def score(rows, which):
+        def call(i, xb, yb):
+            gen = torch.Generator(device=device).manual_seed(
+                chunk_seed(eval_seed, starts[i]))
+            noise = layer_noise(config, (S,), bs, gen)
+            return fn(xb, yb, None, eps=[None if e is None else
+                                         piece_rows(e, rows, 1)
+                                         for e in noise])
+        # this rank's piece of each batch: the rows past a batch's end (or
+        # the table's) are scored on zero noise and dropped when merged
+        batches = [(start + rows.start, piece, piece) for start in starts]
+
+    def score(which):
+        upto = min(n, max(start + size for start, size, _ in which))
         return score_table(
-            lambda i, xb, yb: fn(xb, yb, chunk_seed(eval_seed,
-                                                    which[i][0])),
-            Xn[:rows], None if Yn is None else Yn[:rows], d_in, d_y,
-            which, device, d_mean=config.layers[-1].d_out, depth=args.depth,
-            transport=args.transport)
+            call, Xn[:upto], None if Yn is None else Yn[:upto], d_in,
+            d_y, which, device, d_mean=config.layers[-1].d_out,
+            depth=args.depth, transport=args.transport)
 
     # the kernels' first use, outside the timed region
-    score(batches[0][2], batches[:1])
+    score(batches[:1])
     t0 = time.perf_counter()
-    out = score(n, batches)
+    out = score(batches)
+    if mesh is not None:
+        out = {k: merge_rows(gather_rows(mesh, torch.from_numpy(v))
+                             .cpu().numpy(), bs)[:n]
+               for k, v in out.items()}
     return out, time.perf_counter() - t0
 
 
@@ -283,16 +317,21 @@ def run(args) -> dict:
         if args.export is not None:
             raise SystemExit("--from_export cannot re-export; run a "
                              "--ckpt_dir --export pass instead")
+        if args.shard:
+            print("[serve] --shard ignored: --from_export scores unsharded")
         return _run_from_export(args)
     if args.ckpt_dir is None:
         raise SystemExit("need --ckpt_dir (or --from_export)")
-    if args.shard and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--shard over {torch.cuda.device_count()} cards: sharded "
-            "serving is not ported yet (ROADMAP queue 8)")
     if args.output is not None and args.batch_size < 1:
         raise SystemExit("--batch_size 0 exports a polymorphic artifact; "
                          "scoring from a checkpoint needs a batch size > 0")
+    mesh = None
+    if args.shard and args.export is not None:
+        print("[serve] --shard ignored: --export writes one artifact "
+              "unsharded")
+    else:
+        mesh = shard_mesh(args, n_k=1)
+    lead = mesh is None or distributed.rank() == 0
     device = resolve_device(args.device)
     data_kw = {} if args.data_dir is None else {"data_dir": args.data_dir}
     likelihood, num_classes = _family(args)
@@ -328,7 +367,7 @@ def run(args) -> dict:
     if Yn is None and likelihood == "switched_gaussian":
         raise SystemExit("a switched_gaussian model needs the task-tagged "
                          "Y in --input to score")
-    res, dt = _score_live(args, config, params, Xn, Yn, d_y, device)
+    res, dt = _score_live(args, config, params, Xn, Yn, d_y, device, mesh)
     y_std = np.asarray(data.Y_std).reshape(1, -1)
     y_mean = np.asarray(data.Y_mean).reshape(1, -1)
     out = {
@@ -340,11 +379,13 @@ def run(args) -> dict:
     if Yn is not None:
         out["log_density"] = (res["log_density"]
                               - float(np.sum(np.log(y_std))))
-    np.savez(args.output, **out)
     rate = n / dt
-    bs = min(args.batch_size, n)
-    print(f"[serve] scored {n} points in {dt:.2f}s = {rate:,.0f} points/s "
-          f"(S={S}, batch={bs}, depth={args.depth}) -> {args.output}")
+    if lead:
+        np.savez(args.output, **out)
+        bs = min(args.batch_size, n)
+        print(f"[serve] scored {n} points in {dt:.2f}s = {rate:,.0f} "
+              f"points/s (S={S}, batch={bs}, depth={args.depth}) -> "
+              f"{args.output}")
     return {"n": n, "points_per_sec": rate, "output": args.output}
 
 

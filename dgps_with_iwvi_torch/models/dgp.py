@@ -185,6 +185,24 @@ def propagate(params, config: DGPConfig, X: torch.Tensor, lead: tuple, *,
     return fmean, fvar, log_w, local_kl
 
 
+def layer_noise(config: DGPConfig, lead: tuple, B: int,
+                generator: torch.Generator, *,
+                dtype=torch.float32) -> list:
+    """The per-layer standard normals one ``propagate`` over B rows draws
+    from `generator` (on its device), in the same order and shapes, as
+    its ``eps``:
+    [*lead, B, d_w] for a latent layer, [*lead, B, d_out] for an inner GP
+    layer, None for the final layer. Slicing rows of each keeps those rows'
+    noise, which lets a rank score part of a batch as the whole batch
+    would. An inner layer that draws its noise inside K5 'sample'
+    (``use_pallas``) draws a seed there instead, and given this noise takes
+    K5 'fused' with the sample outside."""
+    return [None if getattr(c, "final", False) else torch.randn(
+        tuple(lead) + (B, c.d_w if isinstance(c, LVLayerConfig) else c.d_out),
+        generator=generator, dtype=dtype, device=generator.device)
+        for c in config.layers]
+
+
 def gp_kls(params, config: DGPConfig,
            factors: dict | None = None) -> torch.Tensor:
     """Sum of the global KL(q(u) || p(u)) over GP layers. factors: the

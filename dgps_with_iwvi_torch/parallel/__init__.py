@@ -1,0 +1,15 @@
+"""Several ranks over torch.distributed: the ('dp', 'k') mesh, the
+sharded trainer and its collectives (port of dgps_with_iwvi_tpu/parallel).
+
+Minibatch rows go over 'dp', importance samples over 'k'; gradients are
+summed over every rank and the state stays replicated. Sharded
+evaluation and serving split test rows over every rank
+(``evaluation.evaluate(mesh=)``, ``dgp-serve-torch --shard``).
+"""
+
+from . import distributed
+from .mesh import make_mesh
+from .sharding import make_parallel_trainer, replicate, shard_arrays
+
+__all__ = ["distributed", "make_mesh", "make_parallel_trainer", "replicate",
+           "shard_arrays"]

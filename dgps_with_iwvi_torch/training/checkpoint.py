@@ -6,6 +6,10 @@ whole training state (``rest``, the natgrad blocks ``natvars``, Adam's
 ``state_dict()`` and ``step``) and the training generator's state, so a
 restarted run continues bit for bit. The reference saves through orbax;
 the file format is the port's own.
+
+Under a mesh (reference l.25-28 saves collectively): rank 0 writes the
+file and every rank waits at a barrier; every rank restores the same
+file, and the ranks then check that they agree bitwise.
 """
 
 from __future__ import annotations
@@ -13,7 +17,9 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.sharding import replicas_agree
 from .train import TrainState
 
 
@@ -30,20 +36,24 @@ def _detached(tree):
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState,
-                    generator: torch.Generator) -> str:
+                    generator: torch.Generator, mesh=None) -> str:
     """Write the state and the generator's state to ckpt_dir/step_<step>.pt
     (through a temporary file, so a crash leaves no half-written
-    checkpoint). Returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"state": {"rest": _detached(state.rest),
-                         "natvars": _detached(state.natvars),
-                         "opt_state": state.opt_state.state_dict(),
-                         "step": int(state.step)},
-               "generator": generator.get_state()}
+    checkpoint). Returns the path. With a mesh every rank calls this: rank
+    0 writes, the others wait for it."""
     path = _path(ckpt_dir, step)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if mesh is None or dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = {"state": {"rest": _detached(state.rest),
+                             "natvars": _detached(state.natvars),
+                             "opt_state": state.opt_state.state_dict(),
+                             "step": int(state.step)},
+                   "generator": generator.get_state()}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        dist.barrier()
     return path
 
 
@@ -86,13 +96,16 @@ def _copy_into(dst, src, where: str) -> None:
             dst.copy_(src)
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like: dict) -> dict:
+def restore_checkpoint(ckpt_dir: str, step: int, like: dict,
+                       mesh=None) -> dict:
     """Restore {'state': TrainState, 'generator': torch.Generator} into the
     template `like` of the same form (its state built by
     ``make_trainer(...)[0](params)``, on the device to restore to): the
     template's tensors, Adam and generator take the saved values, and the
     restored dict is returned. A template without 'generator' (a server,
-    which draws no training minibatches) restores the state alone."""
+    which draws no training minibatches) restores the state alone. With a
+    mesh every rank restores the file, and all must then hold it bitwise
+    alike."""
     path = _path(ckpt_dir, step)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     state, tmpl = saved["state"], like["state"]
@@ -111,4 +124,7 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: dict) -> dict:
     if "generator" in like:
         like["generator"].set_state(saved["generator"])
         out["generator"] = like["generator"]
+    if mesh is not None and not replicas_agree(mesh, out):
+        raise RuntimeError(f"[restore_checkpoint] the ranks restored {path} "
+                           "to different states")
     return out

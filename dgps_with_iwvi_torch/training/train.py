@@ -143,11 +143,16 @@ def _minibatch(tc: TrainConfig, X, Y, generator, idx):
     return X[idx], Y[idx], idx
 
 
+def _neg_elbo(params, cfg, xb, yb, generator, eps, idx, numerics):
+    return -dgp.elbo(params, cfg, xb, yb, generator, eps=eps, data_idx=idx,
+                     numerics=numerics)
+
+
 def _grads(policy, layer_ids, natvars, rest, batch, generator, eps,
-           wrt_nat: bool, wrt_rest: bool):
-    """(loss, nat_grads, rest_grads) of -ELBO with the natvars' (m, S) as
-    fresh leaves; rest_grads in the order of the Adam leaves (None where
-    the loss does not reach a leaf)."""
+           wrt_nat: bool, wrt_rest: bool, objective=_neg_elbo):
+    """(loss, nat_grads, rest_grads) of `objective` (default -ELBO) with
+    the natvars' (m, S) as fresh leaves; rest_grads in the order of the
+    Adam leaves (None where the loss does not reach a leaf)."""
     cfg, numerics = policy
     nat = [{k: (v.detach().requires_grad_(wrt_nat) if k in _NAT_KEYS
                 else v) for k, v in nv.items()} for nv in natvars]
@@ -156,8 +161,7 @@ def _grads(policy, layer_ids, natvars, rest, batch, generator, eps,
                    if wrt_rest else [])
     xb, yb, idx = batch
     params = ng.insert_natvars(rest, nat, layer_ids)
-    loss = -dgp.elbo(params, cfg, xb, yb, generator, eps=eps, data_idx=idx,
-                     numerics=numerics)
+    loss = objective(params, cfg, xb, yb, generator, eps, idx, numerics)
     grads = torch.autograd.grad(loss, [nat[j][k] for j, k in keys]
                                 + rest_leaves, allow_unused=True)
     nat_grads = [{} for _ in nat]
@@ -178,11 +182,27 @@ def loss_and_grads(config: dgp.DGPConfig, tc: TrainConfig,
     loss, g_nat, g_rest = _grads(resolve_full_batch(config, tc, full),
                                  layer_ids, state.natvars, state.rest, batch,
                                  generator, eps, bool(layer_ids), True)
+    return loss, g_nat, _rest_grad_tree(state.rest, g_rest)
+
+
+def _rest_grad_tree(rest, g_rest):
+    """The Adam-ordered gradients as a tree like `rest` (zeros where the
+    loss does not reach a leaf, None for a leaf Adam does not step)."""
     it = iter(g_rest)
-    rest_grads = _map(lambda t: (lambda g: torch.zeros_like(t) if g is None
-                                 else g)(next(it)) if t.requires_grad
-                      else None, state.rest)
-    return loss, g_nat, rest_grads
+    return _map(lambda t: (lambda g: torch.zeros_like(t) if g is None
+                           else g)(next(it)) if t.requires_grad else None,
+                rest)
+
+
+def _adam_step(state, rest_grads) -> None:
+    """One step of the state's Adam on the gradients of its leaves (a
+    leaf with a None gradient is left alone, as torch's Adam does)."""
+    params = [t for t in _leaves(state.rest) if t.requires_grad]
+    for p, g in zip(params, rest_grads):
+        p.grad = g
+    state.opt_state.step()
+    for p in params:
+        p.grad = None
 
 
 def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
@@ -210,14 +230,6 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
                                 lr=tc.lr, betas=(0.9, 0.999), eps=1e-8)
         return TrainState(rest, natvars, adam, 0)
 
-    def _adam(state, rest_grads):
-        params = [t for t in _leaves(state.rest) if t.requires_grad]
-        for p, g in zip(params, rest_grads):
-            p.grad = g
-        state.opt_state.step()
-        for p in params:
-            p.grad = None
-
     def step_fn(state: TrainState, X, Y, generator=None, *, idx=None,
                 eps=None):
         policy = policies[tc.minibatch_size >= X.shape[0]]
@@ -239,7 +251,7 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
                                          bool(layer_ids), True)
             natvars = (ng.natgrad_update(state.natvars, g_nat, gamma)
                        if layer_ids else state.natvars)
-        _adam(state, g_rest)
+        _adam_step(state, g_rest)
         return TrainState(state.rest, natvars, state.opt_state,
                           state.step + 1), loss
 
@@ -263,21 +275,34 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
 def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
         X: torch.Tensor, Y: torch.Tensor, tc: TrainConfig, callback=None,
         state: TrainState | None = None, mesh=None):
-    """Single-device training loop: chunks of steps_per_call steps up to
-    tc.iterations; callback(step, mean_loss, state) after every chunk.
+    """Training loop: chunks of steps_per_call steps up to tc.iterations;
+    callback(step, mean_loss, state) after every chunk.
 
     The reference fires the callback one chunk behind its asynchronous
     dispatch; here the state is updated in place, so the callback runs
     right after its chunk and sees that chunk's state. Pass ``state`` to
     continue a run from a chunk boundary, e.g. one restored by
     ``training.checkpoint.restore_checkpoint`` together with the
-    generator's state. Returns (canonical params, state)."""
+    generator's state. Returns (canonical params, state).
+
+    mesh: a ('dp', 'k') mesh (``parallel.make_mesh``) trains with the
+    sharded step (``parallel.sharding``): X and Y are the global arrays,
+    each rank keeps its 'dp' chunk, the state is replicated from rank 0
+    and the callback gets the loss summed over every rank, the same on
+    each. The generator is then a CPU generator, the same on every rank
+    (one seed per step, drawn without a device sync)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded trainer is not ported yet (ROADMAP queue 8)")
-    init_fn, _, chunk_fn, params_fn = make_trainer(config, tc)
-    if state is None:
-        state = init_fn(params)
+        from ..parallel import sharding
+
+        init_fn, _, chunk_fn, params_fn = sharding.make_parallel_trainer(
+            config, tc, mesh)
+        X, Y = sharding.shard_arrays(mesh, X, Y)
+        state = sharding.replicate(mesh, init_fn(params) if state is None
+                                   else state)
+    else:
+        init_fn, _, chunk_fn, params_fn = make_trainer(config, tc)
+        if state is None:
+            state = init_fn(params)
     if state.step % tc.steps_per_call:
         raise ValueError(
             f"resume step {state.step} is not a multiple of steps_per_call="

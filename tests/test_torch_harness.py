@@ -247,5 +247,8 @@ def test_suite_runs_the_grid_and_skips_existing_rows(tmp_path, capsys):
     assert run_suite.main(argv) == []
     assert "[skip] ('yacht', 'G', 'VI', 1)" in capsys.readouterr().out
     assert run_suite.parse_args(argv).skip_existing
+    assert run_suite.parse_args(argv + ["--skip_existing"]).skip_existing
     assert not run_suite.parse_args(argv + ["--no_skip_existing"]) \
         .skip_existing
+    assert run_suite.parse_args(
+        argv + ["--no_skip_existing", "--skip_existing"]).skip_existing
