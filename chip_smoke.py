@@ -120,7 +120,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    whose mean loss equals the single-device chunk's on the same draws.
    Launches are counted per rank around the sharded paths only; the
    two-rank steps/s is printed as two processes time-sliced on one card,
-   not a scaling figure.
+   not a scaling figure;
+11. flops and demos: (a) ``utils.flops.step_cost`` of the flagship step
+   at B=512 and B=8192, per class equal to the pinned figures of
+   ``tests/test_torch_flops.py``, and the MFU and adjusted MFU at phase
+   5's steps/s (B=512, B=8192, use_pallas B=512) and, with --profile, at
+   its device-busy time per step; (b) the results rows of phases 6, 8, 9
+   and 10 carry a finite ``flops_per_step`` equal to step_cost's figure
+   for that run and ``mfu``/``mfu_adjusted`` in (0, 1) (checked in those
+   phases); (c) the demos ``demos.toy_1d`` and ``demos.multitask_icm``
+   on the card, cut to 300 of their 3000 and 4000 steps: launches exact
+   per step and per prediction (see ``demos_phase``), the loss falling,
+   the predictions within 1e-3 of |x|+1 of the plain versions' on the
+   same trained parameters, multitask's learned noise stds beside the
+   true ones; the plots written where matplotlib imports.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path; phase 10's by rank), then the card's name and power limit, then
@@ -1643,6 +1656,7 @@ def harness_phase(torch, card: str, tmp: str) -> dict:
     exp = harness.setup(args(straight))
     n_test = exp.data.X_test.shape[0]
     untrained = harness.evaluate_model(args(straight), exp, exp.params)
+    want_flops = expected_flops(harness, args(straight), exp)
     del exp
     chunks = -(-n_test // EVAL_BATCH)
     if min(n_test, EVAL_BATCH) != HARNESS_TEST_ROWS:
@@ -1673,6 +1687,7 @@ def harness_phase(torch, card: str, tmp: str) -> dict:
     if not row["synthetic_data"] or row["backend"] != "cuda":
         fail(f"harness: ran on {row['backend']}, synthetic "
              f"{row['synthetic_data']}")
+    flops_rec = row_flops(row, want_flops, "harness")
     with contextlib.closing(sqlite3.connect(":memory:")) as conn:
         conn.executescript(SCHEMA)
         schema = conn.execute("PRAGMA table_info(regression)").fetchall()
@@ -1713,7 +1728,7 @@ def harness_phase(torch, card: str, tmp: str) -> dict:
            "elbo": row["elbo"], "steps_per_s": row["steps_per_sec"],
            "train_time_s": row["train_time_s"],
            "steps_per_s_wall": HARNESS_STEPS / row["train_time_s"],
-           "launches": counts,
+           "launches": counts, "row_flops": flops_rec,
            "resumed": {"from_step": HARNESS_RESUME_AT,
                        "test_loglik": row_resumed["test_loglik"],
                        "steps_per_s": row_resumed["steps_per_sec"],
@@ -2136,6 +2151,7 @@ def families_phase(torch, card: str, tmp: str) -> dict:
         out["vs_plain_on_card"] = _grad_agreement(
             torch, train, exp.config, tc, state, exp.X, exp.Y, idx, eps,
             exact_params=params if multiclass else None)
+        want_flops = expected_flops(harness, args, exp)
         del exp, params, state
 
         S = FAMILY_STEPS
@@ -2155,6 +2171,7 @@ def families_phase(torch, card: str, tmp: str) -> dict:
         if not all(math.isfinite(row[k]) for k in ("test_loglik", "elbo")):
             fail(f"families ({label}): test loglik {row['test_loglik']} or "
                  f"ELBO {row['elbo']} is not finite")
+        out["row_flops"] = row_flops(row, want_flops, f"families ({label})")
         if not row["test_loglik"] > untrained["test_loglik"]:
             fail(f"families ({label}): test loglik {row['test_loglik']} is "
                  f"not above the untrained model's "
@@ -2503,6 +2520,7 @@ def breadth_phase(torch, card: str, tmp: str) -> dict:
             torch, train, exp.config, tc, state, exp.X, exp.Y, idx, eps)
         scales0 = [lp["raw_Z_scales"].clone() for lp in exp.params["layers"]
                    if "raw_Z_scales" in lp]
+        want_flops = expected_flops(harness, args, exp)
         del exp, params, state
 
         S = FAMILY_STEPS
@@ -2519,6 +2537,7 @@ def breadth_phase(torch, card: str, tmp: str) -> dict:
         if not all(math.isfinite(row[k]) for k in ("test_loglik", "elbo")):
             fail(f"breadth ({label}): test loglik {row['test_loglik']} or "
                  f"ELBO {row['elbo']} is not finite")
+        out["row_flops"] = row_flops(row, want_flops, f"breadth ({label})")
         if not row["test_loglik"] > untrained["test_loglik"]:
             fail(f"breadth ({label}): test loglik {row['test_loglik']} is "
                  f"not above the untrained model's "
@@ -2845,6 +2864,8 @@ def _parallel_cli(torch, build, counts, tmp, rank: int) -> dict:
     exp = harness.setup(args)
     untrained = harness.evaluate_model(args, exp, exp.params)
     chunks = -(-exp.data.X_test.shape[0] // EVAL_BATCH)
+    world = dist.get_world_size()
+    want_flops = expected_flops(harness, args, exp, (world // 2, 2))
     del exp
     row = _counted(build, counts, "cli_train",
                    lambda: harness.run(args))
@@ -2872,7 +2893,8 @@ def _parallel_cli(torch, build, counts, tmp, rank: int) -> dict:
                                        "serve_cond:infer": 2})
     out = {"test_loglik": row["test_loglik"],
            "untrained_test_loglik": untrained["test_loglik"],
-           "steps_per_s": row["steps_per_sec"], "results_rows": n_rows}
+           "steps_per_s": row["steps_per_sec"], "results_rows": n_rows,
+           "row_flops": row_flops(row, want_flops, "cli", _check)}
     if rank == 0:
         serve.run(serve.parse_args(base + ["--output", single]))
         a, b = np.load(sharded), np.load(single)
@@ -3047,6 +3069,245 @@ AB_COND_CASES = [
     ("'fused' with residuals, Adam-only training", 20 * 512, D_X, M, 1,
      "K5", False, True, 50),
 ]
+
+
+# ---- phase 11: the FLOP count and the demos --------------------------------
+
+# the flagship step's products per class (LGG, IW K=20, M=128, natgrad
+# final, kin8nm's shape; B=8192 on the rows tiled past 8192): the pinned
+# figures of tests/test_torch_flops.py, equal there to the reference's
+# parse of its lowered chunk_fn
+FLAGSHIP_FLOPS = {
+    512: {"default": 9_135_144_960, "high": 2_084_044_800,
+          "highest": 185_794_560},
+    8192: {"default": 146_162_319_360, "high": 33_344_716_800,
+           "highest": 2_191_196_160},
+}
+# the demos' runs, cut from the reference's 3000 and 4000 iterations
+DEMO_STEPS = {"toy_1d": 300, "multitask": 300}
+DEMO_CHUNK = 100
+# the served route's gate, |a-b| / (1 + |b|), against float64; or twice
+# the plain versions' own float32 gap to float64 where that is larger
+# (toy_1d's trained Kuu has a condition number near 1e9: every float32
+# route of its predictions sits ~1e-2 from float64)
+DEMO_TOL = 1e-3
+
+
+def expected_flops(harness, args, exp, mesh_shape=None) -> float:
+    """step_cost's FLOPs per step for the run of `args` on `exp`'s model
+    (one rank's step on a mesh of `mesh_shape`)."""
+    from dgps_with_iwvi_torch.training import TrainConfig
+    from dgps_with_iwvi_torch.utils.flops import step_cost
+
+    tc = TrainConfig(natgrad=args.natgrad, schedule=args.schedule,
+                     minibatch_size=args.minibatch_size,
+                     solve_bwd_precision=args.solve_bwd_precision)
+    with harness.gram_switches(args.gram_fwd_precision, args.gram_bwd_relax):
+        return step_cost(exp.config, tc, exp.X.shape[0], dtype=exp.dtype,
+                         mesh_shape=mesh_shape)["flops"]
+
+
+def row_flops(row: dict, want: float, what: str, check=None) -> dict:
+    """A results row's FLOP fields: flops_per_step finite and equal to
+    step_cost's figure for the run, mfu and mfu_adjusted in (0, 1)."""
+    check = check or (lambda ok, msg: ok or fail(msg))
+    got = row["flops_per_step"]
+    check(isinstance(got, (int, float)) and math.isfinite(got)
+          and got == want, f"{what}: flops_per_step {got}, want {want}")
+    for k in ("mfu", "mfu_adjusted"):
+        check(row[k] is not None and 0.0 < row[k] < 1.0,
+              f"{what}: {k} = {row[k]} is not in (0, 1)")
+    return {k: row[k] for k in ("flops_per_step", "mfu", "mfu_adjusted")}
+
+
+def _demo_predictions(torch, build, predict, params) -> tuple:
+    """(arrays, launches) of predict(params) through the kernels, and per
+    output the largest |a-b| / (1+|b|) of: the kernels against the plain
+    versions, both against the plain versions in float64 on the same
+    parameters, and each output's gate (DEMO_TOL)."""
+    from dgps_with_iwvi_torch import params as tparams
+
+    build.reset_launches()
+    got = predict(params)
+    counts = {k: v for k, v in _path_counts(build).items() if v}
+    with build.plain_versions():
+        plain = predict(params)
+        exact = predict(tparams.params_from_numpy(
+            tparams.params_to_numpy(params), "cuda", dtype=torch.float64))
+
+    def gap(a, b):
+        return float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+
+    gaps = {}
+    for k, b in exact.items():
+        if isinstance(b, np.ndarray) and b.dtype.kind == "f" and k in (
+                "draws", "traversal", "mean", "var", "B", "noise_variance"):
+            g = {"vs_plain": gap(got[k], plain[k]),
+                 "vs_float64": gap(got[k], b),
+                 "plain_vs_float64": gap(plain[k], b)}
+            g["gate"] = max(DEMO_TOL, 2.0 * g["plain_vs_float64"])
+            gaps[k] = g
+    return got, counts, gaps
+
+
+def demos_phase(torch, card: str) -> dict:
+    """The two demos' compute halves on the card at a cut length (toy_1d
+    300 of its 3000 steps, multitask 300 of 4000), in chunks of 100.
+
+    Launches, written before the first run: both train full-batch, so the
+    classes escalate to 'highest' and K2/K3 decline every training step.
+    toy_1d (LG, natgrad final): per step K1 twice (the Kuu factor and the
+    natgrad precision's factor), once more for the trained q(u)'s
+    canonical form; per predict_f (the draws, S=60, and the traversal,
+    S=7, each one batched GIVEN call) K1 once and K4 'infer' once (rbf,
+    whitened, M=32). multitask (G, VI, Adam only): per step K1 once; per
+    predict_f (one per task) K1 once and K2 'epi' once at M=32 (the
+    coregion product is no rbf, so K4 declines). The loss falls from the
+    first chunk to the last; the predictions through the kernels are
+    within 1e-3 of |x|+1 of the same predictions through the plain
+    versions in float64 on the same trained parameters, or within twice
+    the plain versions' own float32 gap where that is larger (toy_1d's
+    trained Kuu is near-singular, so every float32 route of it is ~1e-2
+    off); the learned noise stds are printed beside the true ones. The
+    plots are written where matplotlib imports."""
+    from dgps_with_iwvi_torch.demos import multitask_icm, toy_1d
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    steps, rec = DEMO_STEPS, {}
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    runs = [
+        ("toy_1d", lambda: toy_1d.compute(
+            steps["toy_1d"], device="cuda", chunk=DEMO_CHUNK),
+         {"chol_inv": 2 * steps["toy_1d"] + 1},
+         lambda r, p: toy_1d.predict(p, r["config"], r["ws"], "cuda"),
+         {"chol_inv": 2, "serve_cond:infer": 2}, toy_1d),
+        ("multitask", lambda: multitask_icm.compute(
+            steps["multitask"], device="cuda", chunk=DEMO_CHUNK),
+         {"chol_inv": steps["multitask"]},
+         lambda r, p: multitask_icm.predict(p, r["config"], "cuda"),
+         {"chol_inv": 3, "epilogue:epi": 3}, multitask_icm),
+    ]
+    for label, compute, train_want, predict, predict_want, mod in runs:
+        t0 = time.perf_counter()
+        build.reset_launches()
+        r = compute()
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        want = {k: train_want.get(k, 0) + predict_want.get(k, 0)
+                for k in {**train_want, **predict_want}}
+        if counts != want:
+            fail(f"demo {label}: launches {counts}, want {want} "
+                 f"({steps[label]} steps, then the predictions)")
+        losses = r["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"demo {label}: chunk losses {losses.tolist()} do not fall")
+        got, pcounts, gaps = _demo_predictions(
+            torch, build, lambda p: predict(r, p), r["params"])
+        if pcounts != predict_want:
+            fail(f"demo {label}: prediction launches {pcounts}, want "
+                 f"{predict_want}")
+        bad = {k: g for k, g in gaps.items()
+               if not g["vs_float64"] <= g["gate"]}
+        if bad:
+            fail(f"demo {label}: the kernels' predictions off float64 "
+                 f"beyond their gate: {bad} (|a-b|/(1+|b|))")
+        out = {"steps": steps[label], "launches": counts,
+               "launches_per_prediction": pcounts,
+               "chunk_losses": losses.tolist(), "vs_plain_on_card": gaps,
+               "seconds": time.perf_counter() - t0}
+        if label == "multitask":
+            out["noise_sd"] = np.sqrt(r["noise_variance"]).tolist()
+            out["true_sd"] = list(multitask_icm.TRUE_STDS)
+            print(f"demo multitask: learned noise sd "
+                  f"{np.round(out['noise_sd'], 3).tolist()} (true "
+                  f"{out['true_sd']}) after {steps[label]} steps on {card}")
+        else:
+            out["noise_sd"] = float(np.sqrt(r["noise_variance"]))
+        if plots:
+            out["png"] = mod.plot(r, os.path.join(
+                tempfile.gettempdir(), f"{label}_torch.png"))
+        print(f"demo {label}: {steps[label]} steps, chunk losses "
+              f"{np.round(losses, 3).tolist()}, launches {counts}, per "
+              f"prediction {pcounts}, vs plain {gaps}, "
+              f"{out['seconds']:.1f} s; plot "
+              f"{'written' if plots else 'skipped: no matplotlib'} on {card}")
+        rec[label] = out
+    return rec
+
+
+def flops_phase(torch, card: str, rec: dict) -> dict:
+    """(a) step_cost of the flagship at B=512 and B=8192 on this machine,
+    held to the pinned per-class figures exactly; MFU and adjusted MFU at
+    phase 5's measured steps/s (B=512, B=8192, use_pallas B=512), and at
+    the device-busy time per step where --profile measured it; (b) the
+    results rows of phases 6, 8, 9 and 10 (checked there, listed here);
+    (c) the demos (``demos_phase``)."""
+    from dgps_with_iwvi_torch.models import BuildArgs, build_config
+    from dgps_with_iwvi_torch.training import TrainConfig
+    from dgps_with_iwvi_torch.utils import flops
+
+    name, peak = flops.device_peak("cuda")
+    if peak is None:
+        fail(f"flops: no peak for {name!r} (utils/flops.py PEAK_FLOPS)")
+    args = BuildArgs(configuration="LGG", mode="IW", num_inducing=M,
+                     num_iw_samples=L_TRAIN)
+    reps = (B_BIG + N_KIN8NM - 1) // N_KIN8NM + 1
+    t = rec["train"]
+    shapes = [
+        (B_TRAIN, N_KIN8NM, [
+            ("B=512", t["steps_per_s_b512"], t.get("profile_b512")),
+            ("use_pallas B=512",
+             t["use_pallas"]["natgrad final"]["steps_per_s_b512"], None)]),
+        (B_BIG, N_KIN8NM * reps, [
+            ("B=8192", t["steps_per_s_b8192"], t.get("profile_b8192"))]),
+    ]
+    out = {"peak_bf16": peak, "steps": {}}
+    for B, n, rates in shapes:
+        config = build_config(args, D_KIN8NM, 1, n)
+        tc = TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                         minibatch_size=B)
+        t0 = time.perf_counter()
+        cost = flops.step_cost(config, tc, n)
+        count_ms = (time.perf_counter() - t0) * 1e3
+        if cost["flops_by_class"] != FLAGSHIP_FLOPS[B]:
+            fail(f"flops: the flagship at B={B} counts "
+                 f"{cost['flops_by_class']}, pinned {FLAGSHIP_FLOPS[B]}")
+        print(f"flops: flagship step at B={B}: {json.dumps(cost)} "
+              f"(counted in {count_ms:.3f} ms) on {card}")
+        for label, sps, prof in rates:
+            e = {"flops_per_step": cost["flops"],
+                 "adjusted_flops_per_step": cost["adjusted_flops"],
+                 "steps_per_s": sps,
+                 "mfu": cost["flops"] * sps / peak,
+                 "mfu_adjusted": cost["adjusted_flops"] * sps / peak}
+            line = (f"flops: {label}: {sps:.2f} steps/s -> mfu "
+                    f"{e['mfu']:.6f}, mfu_adjusted {e['mfu_adjusted']:.6f}")
+            if prof:
+                busy = 1e3 / prof["device_ms_per_step"]
+                e.update(device_busy_steps_per_s=busy,
+                         mfu_device_busy=cost["flops"] * busy / peak,
+                         mfu_adjusted_device_busy=(
+                             cost["adjusted_flops"] * busy / peak))
+                line += (f"; at the device-busy time per step "
+                         f"({prof['device_ms_per_step']:.3f} ms): mfu "
+                         f"{e['mfu_device_busy']:.6f}, mfu_adjusted "
+                         f"{e['mfu_adjusted_device_busy']:.6f}")
+            print(f"{line} on {card}")
+            out["steps"][label] = e
+    out["rows"] = {
+        "harness": rec["harness"]["row_flops"],
+        **{f"{phase}_{k}": v["row_flops"]
+           for phase in ("families", "breadth")
+           for k, v in rec[phase].items()
+           if isinstance(v, dict) and "row_flops" in v},
+        **{f"parallel_cli_rank{r}": rk["cli"]["row_flops"]
+           for r, rk in enumerate(rec["parallel"]["ranks"])}}
+    print("flops: results rows " + json.dumps(out["rows"]) + f" on {card}")
+    out["demos"] = demos_phase(torch, card)
+    return out
 
 
 def _parent_libs(hopper, build, parent: str) -> dict:
@@ -3330,6 +3591,10 @@ def main() -> int:
         print(f"parallel: phase 10 took {rec['parallel']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec["flops"] = flops_phase(torch, card, rec)
+    rec["flops"]["phase_s"] = time.perf_counter() - t0
+    print(f"flops: phase 11 took {rec['flops']['phase_s']:.1f} s")
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
         wall = rec["slice"]["serve_s"] * 1e3 / REQUESTS
@@ -3360,7 +3625,10 @@ def main() -> int:
              "breadth_serve": rec["breadth"]["serve"]["launches"],
              "breadth_predict": rec["breadth"]["sampling"]["launches"],
              **{f"parallel_rank{r}": counts for r, counts in
-                enumerate(rec["parallel"]["launches"])}}
+                enumerate(rec["parallel"]["launches"])},
+             "demo_toy_1d": rec["flops"]["demos"]["toy_1d"]["launches"],
+             "demo_multitask":
+                 rec["flops"]["demos"]["multitask"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -3384,6 +3652,7 @@ def main() -> int:
     print("families: " + json.dumps(rec["families"]))
     print("breadth: " + json.dumps(rec["breadth"]))
     print("parallel: " + json.dumps(rec["parallel"]))
+    print("flops: " + json.dumps(rec["flops"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

@@ -22,8 +22,10 @@ fused-conditional routes (``DGPConfig.use_pallas`` and ``serve_pallas``),
 so every Pallas kernel of the reference has a counterpart, the UCI
 harness (``data``, ``evaluation``, ``experiments.main`` and ``serve``),
 the kernel and likelihood families and the rest of the reference's
-breadth, and several ranks over ``torch.distributed`` (``parallel``: the
-('dp', 'k') mesh, the sharded trainer, sharded evaluation and serving).
+breadth, several ranks over ``torch.distributed`` (``parallel``: the
+('dp', 'k') mesh, the sharded trainer, sharded evaluation and serving),
+the per-step FLOP count and MFU (``utils.flops``) and the two demos
+(``demos``).
 """
 
 __version__ = "0.1.0"

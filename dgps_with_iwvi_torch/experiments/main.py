@@ -49,6 +49,7 @@ from dgps_with_iwvi_torch.training.checkpoint import (latest_step,
                                                       save_checkpoint)
 from dgps_with_iwvi_torch.training.monitor import (Monitor,
                                                    hyperparameter_scalars)
+from dgps_with_iwvi_torch.utils.flops import device_peak, step_cost
 
 
 def parse_args(argv=None):
@@ -317,6 +318,12 @@ def _run(args) -> dict:
         minibatch_size=args.minibatch_size, iterations=args.iterations,
         steps_per_call=args.steps_per_call,
         solve_bwd_precision=args.solve_bwd_precision)
+    # FLOPs of one step (utils/flops.py), analytic from the configuration:
+    # under --shard one rank's step, as the reference's shard_map body
+    # counts it. A configuration the count cannot express raises here,
+    # before any training.
+    cost = step_cost(config, tc, X.shape[0], dtype=exp.dtype,
+                     mesh_shape=mesh_shape(mesh) if mesh else None)
     mon = Monitor(print_every=args.print_every if lead else 0,
                   log_dir=args.log_dir if lead else None,
                   scalars_fn=lambda state: hyperparameter_scalars(
@@ -380,6 +387,14 @@ def _run(args) -> dict:
     if not math.isfinite(steps_per_sec) or steps_per_sec <= 0:
         steps_per_sec = args.iterations / train_time
 
+    # nominal and adjusted MFU against the card's bf16 peak (None off a
+    # card with a known peak, as the reference writes None)
+    _, peak = device_peak(device)
+    mfu = mfu_adj = None
+    if peak:
+        mfu = cost["flops"] * steps_per_sec / peak
+        mfu_adj = cost["adjusted_flops"] * steps_per_sec / peak
+
     row = {
         "dataset": args.dataset, "split": args.split,
         "configuration": args.configuration, "mode": args.mode.upper(),
@@ -388,8 +403,8 @@ def _run(args) -> dict:
         "lr": args.lr, "gamma": args.gamma,
         **metrics,
         "elbo": final_elbo, "steps_per_sec": steps_per_sec,
-        # no FLOP count of the port's step yet (ROADMAP queue 1 item 5)
-        "flops_per_step": None, "mfu": None, "mfu_adjusted": None,
+        "flops_per_step": cost["flops"],
+        "mfu": mfu, "mfu_adjusted": mfu_adj,
         "synthetic_data": exp.data.synthetic, "dtype": args.dtype,
         "backend": device.type,
         "device_name": (torch.cuda.get_device_name(device)

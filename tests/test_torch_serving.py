@@ -205,7 +205,10 @@ def test_port_imports_no_jax():
             "'dgps_with_iwvi_torch.experiments.serve', "
             "'dgps_with_iwvi_torch.ops.features', "
             "'dgps_with_iwvi_torch.ops.priors', "
-            "'dgps_with_iwvi_torch.parallel.sharding'} <= set(mods), mods;"
+            "'dgps_with_iwvi_torch.parallel.sharding', "
+            "'dgps_with_iwvi_torch.utils.flops', "
+            "'dgps_with_iwvi_torch.demos.toy_1d', "
+            "'dgps_with_iwvi_torch.demos.multitask_icm'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'dgps_with_iwvi_tpu'))];"
             "print(bad); sys.exit(1 if bad else 0)")
