@@ -133,7 +133,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    per step and per prediction (see ``demos_phase``), the loss falling,
    the predictions within 1e-3 of |x|+1 of the plain versions' on the
    same trained parameters, multitask's learned noise stds beside the
-   true ones; the plots written where matplotlib imports.
+   true ones; the plots written where matplotlib imports;
+12. graphs: the CUDA graphs that ``fit`` and ``Scorer`` replay on the card
+   (``utils/graphs.py``) against the eager calls, in turns (eager, graph,
+   eager, graph) within this call: the flagship step (natgrad final) at
+   B=512 (100 steps a turn) and B=8192 (20) and with ``use_pallas`` at
+   B=512, from equal states and generator states, the losses of each
+   pair of turns and every state leaf afterwards bitwise equal; the 8
+   requests of phase 4 on its three routes through ``make_scorer_fn``
+   eagerly and through ``Scorer``, every output bitwise equal; launches
+   exact per step and request in every turn; steps/s, points/s, the
+   capture time, the peak memory of the first chunk and, with --profile,
+   the idle share of a replayed chunk.
+
+Since this slice ``fit`` and ``Scorer`` replay CUDA graphs on the card,
+so phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with
+their launch gates unchanged; phase 5 times ``step_fn`` eagerly and phase
+10's ``fit(mesh=)`` stays eager.
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path; phase 10's by rank), then the card's name and power limit, then
@@ -1451,6 +1467,24 @@ def profile_train(torch, step, state, X, Y, gen, steps: int = 5) -> dict:
                 {"span": k[:200], "ms": ms} for ms, _, k in spans]}
 
 
+def flagship_model(torch):
+    """(config, params, X, Y): the flagship LGG (IW K=20, M=128) built from
+    seed 0 on synthetic data of kin8nm's shape, with a random q(u) away
+    from its initialization, as after some training; on the card."""
+    from dgps_with_iwvi_torch.models import BuildArgs, build_model
+
+    rng = np.random.default_rng(2)
+    Xn = rng.standard_normal((N_KIN8NM, D_KIN8NM)).astype(np.float32)
+    Yn = (np.sin(Xn[:, :1]) + 0.1 * rng.standard_normal((N_KIN8NM, 1))
+          ).astype(np.float32)
+    args = BuildArgs(configuration="LGG", mode="IW", num_inducing=M,
+                     num_iw_samples=L_TRAIN)
+    config, params = build_model(0, args, Xn, Yn, device="cuda")
+    random_q(torch, params)
+    return config, params, torch.from_numpy(Xn).cuda(), \
+        torch.from_numpy(Yn).cuda()
+
+
 def train_phase(torch, card: str, profile: bool) -> dict:
     """The flagship training step: LGG, IW K=20, M=128, natgrad on the
     final layer, Adam on the rest, on synthetic data of kin8nm's shape.
@@ -1461,19 +1495,9 @@ def train_phase(torch, card: str, profile: bool) -> dict:
     import dataclasses
 
     from dgps_with_iwvi_torch import training as train
-    from dgps_with_iwvi_torch.models import BuildArgs, build_model
     from dgps_with_iwvi_torch.ops.hopper import build
 
-    rng = np.random.default_rng(2)
-    Xn = rng.standard_normal((N_KIN8NM, D_KIN8NM)).astype(np.float32)
-    Yn = (np.sin(Xn[:, :1]) + 0.1 * rng.standard_normal((N_KIN8NM, 1))
-          ).astype(np.float32)
-    args = BuildArgs(configuration="LGG", mode="IW", num_inducing=M,
-                     num_iw_samples=L_TRAIN)
-    config, params = build_model(0, args, Xn, Yn, device="cuda")
-    # a q(u) away from its initialization, as after some training
-    random_q(torch, params)
-    X, Y = torch.from_numpy(Xn).cuda(), torch.from_numpy(Yn).cuda()
+    config, params, X, Y = flagship_model(torch)
     tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
                            minibatch_size=B_TRAIN)
     init, step, _, params_fn = train.make_trainer(config, tc)
@@ -3310,6 +3334,272 @@ def flops_phase(torch, card: str, rec: dict) -> dict:
     return out
 
 
+GRAPH_TURNS = ("eager", "graph", "eager", "graph")
+# (label, batch, DGPConfig fields replaced, steps per turn, launches per
+# step): the flagship step (natgrad final) at B=512 and B=8192 and with
+# use_pallas, as in phase 5
+GRAPH_TRAIN = [
+    ("flagship B=512", B_TRAIN, {}, 100,
+     {"chol_inv": 2, "epilogue:epi": 2, "epilogue_bwd:epi": 2}),
+    ("flagship B=8192", B_BIG, {}, 20,
+     {"chol_inv": 2, "epilogue:epi": 2, "epilogue_bwd:epi": 2}),
+    ("use_pallas B=512", B_TRAIN, {"use_pallas": True}, 100,
+     {"conditional:sample": 1, "epilogue:epi": 1, "epilogue_bwd:epi": 1,
+      "chol_inv": 2}),
+]
+# (label, DGPConfig fields replaced, launches per request): phases 4's
+# three serving routes
+GRAPH_SERVE = [
+    ("K2 route", {"serve_pallas": False},
+     {"chol_inv": 1, "epilogue:epi": 2}),
+    ("default (K4)", {},
+     {"serve_cond:sample": 1, "serve_cond:infer": 1, "chol_inv": 1}),
+    ("use_pallas", {"use_pallas": True, "serve_pallas": False},
+     {"conditional:sample": 1, "conditional:fused": 1, "chol_inv": 1}),
+]
+
+
+def _graph_train_case(torch, train, build, model, label, batch, fields,
+                      steps, want, profile) -> dict:
+    """One training case of phase 12: the eager chunk (make_trainer's
+    loop of step_fn) and the graphed chunk (``graphed_chunk_fn``, what fit
+    runs on the card) from equal states and generator states, in turns;
+    after each pair of turns the losses and every state leaf equal
+    bitwise; launches per step exact in every turn; MFU at each turn's
+    rate (``utils.flops``)."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.utils import flops
+
+    config, params, X, Y = model
+    if batch > X.shape[0]:  # the data tiled past the batch, as bench.py
+        reps = (batch + X.shape[0] - 1) // X.shape[0] + 1
+        X, Y = X.repeat(reps, 1), Y.repeat(reps, 1)
+    config = dataclasses.replace(config, num_data=X.shape[0], **fields)
+    tc = train.TrainConfig(lr=5e-3, gamma=1e-2, natgrad="final",
+                           minibatch_size=batch, steps_per_call=steps)
+    init, step, chunk, _ = train.make_trainer(config, tc)
+    state = {"eager": init(params), "graph": init(params)}
+    gens = {k: torch.Generator(device="cuda").manual_seed(0)
+            for k in state}
+    fns = {"eager": chunk,
+           "graph": train.graphed_chunk_fn(step, tc, state["graph"], X, Y,
+                                           gens["graph"])}
+    # the first chunk of each side outside the turns: the graph's holds
+    # its warm-up step and its capture
+    firsts = {}
+    for side in ("eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state[side], firsts[side] = fns[side](state[side], X, Y, gens[side])
+        torch.cuda.synchronize()
+        firsts[side + "_s"] = time.perf_counter() - t0
+        firsts[side + "_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+        # what the allocator holds after it: the graph's private pool and
+        # the capture stream's cache beside what is live
+        firsts[side + "_reserved_gib"] = (torch.cuda.memory_reserved()
+                                          / 2 ** 30)
+    if not torch.equal(firsts["eager"], firsts["graph"]):
+        fail(f"graphs, train {label}: the first graphed chunk's losses "
+             "differ from the eager chunk's")
+    captured = fns["graph"].graphs.graphs()
+    if len(captured) != 1:
+        fail(f"graphs, train {label}: {len(captured)} graphs, want 1")
+    turns = []
+    for i, side in enumerate(GRAPH_TURNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        state[side], losses = fns[side](state[side], X, Y, gens[side])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != {k: v * steps for k, v in want.items()}:
+            fail(f"graphs, train {label} ({side}): launches {counts} in "
+                 f"{steps} steps, want per step {want}")
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"graphs, train {label} ({side}): a loss is not finite")
+        turns.append({"side": side, "steps_per_s": steps / wall,
+                      "launches": counts,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2 ** 30, "losses": losses})
+    for e, g in ((turns[0], turns[1]), (turns[2], turns[3])):
+        if not torch.equal(e.pop("losses"), g.pop("losses")):
+            fail(f"graphs, train {label}: replayed losses differ from the "
+                 "eager steps'")
+    leaves = [_state_leaves(state[side]) for side in ("eager", "graph")]
+    differ = [i for i, (a, b) in enumerate(zip(*leaves)) if not
+              torch.equal(a, b)]
+    if differ or not torch.equal(gens["eager"].get_state(),
+                                 gens["graph"].get_state()):
+        fail(f"graphs, train {label}: after {3 * steps} steps the graphed "
+             f"state differs from the eager one in leaves {differ} (or the "
+             "generator)")
+    cost = flops.step_cost(config, tc, X.shape[0])
+    _, peak = flops.device_peak("cuda")
+    rates = {side: [t["steps_per_s"] for t in turns if t["side"] == side]
+             for side in ("eager", "graph")}
+    rec = {"batch": batch, "steps_per_turn": steps, "turns": turns,
+           "eager_steps_per_s": rates["eager"],
+           "graph_steps_per_s": rates["graph"],
+           "flops_per_step": cost["flops"],
+           "mfu": {side: [cost["flops"] * r / peak for r in v]
+                   for side, v in rates.items()},
+           "mfu_adjusted": {side: [cost["adjusted_flops"] * r / peak
+                                   for r in v]
+                            for side, v in rates.items()},
+           "capture_s": captured[0].capture_s,
+           "first_chunk_s": {k: firsts[k + "_s"] for k in state},
+           "first_chunk_peak_mem_gib": {k: firsts[k + "_peak_gib"]
+                                        for k in state},
+           "reserved_after_first_chunk_gib": {
+               k: firsts[k + "_reserved_gib"] for k in state},
+           "launches_per_replay": dict(captured[0].launches),
+           "bitwise_equal_after_steps": 3 * steps,
+           "first_chunk_steps": steps,
+           "leaves_compared": len(leaves[0])}
+    if profile:
+        rec["profile_graph"] = _profile_chunk(torch, fns["graph"],
+                                              state["graph"], X, Y,
+                                              gens["graph"], steps)
+    return rec
+
+
+def _state_leaves(state) -> list:
+    """Every tensor of a TrainState: rest, natvars, Adam's moments."""
+    from dgps_with_iwvi_torch.training import train
+
+    opt = state.opt_state.state_dict()["state"]
+    return (train._leaves(state.rest) + train._leaves(state.natvars)
+            + [t for s in opt.values() for t in s.values()])
+
+
+def _profile_chunk(torch, chunk, state, X, Y, gen, steps) -> dict:
+    """Device time by kernel over one graphed chunk (torch.profiler) and
+    the device's idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunk(state, X, Y, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, spans = _device_rows(prof, steps)
+    busy_ms = sum(r[0] for r in rows)
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms * steps / wall_ms,
+            "kernels_ms_per_step": [
+                {"kernel": k[:200], "ms": ms, "calls": c}
+                for ms, c, k in sorted(rows, reverse=True)[:40]]}
+
+
+def _graph_serve_case(torch, serving, build, model, label, fields,
+                      want) -> dict:
+    """One serving route of phase 12: ``score_table`` over make_scorer_fn's
+    eager calls against ``Scorer.score`` (a replayed graph per request),
+    the same REQUESTS batches and seeds, in turns: outputs bitwise equal,
+    launches per request exact in every turn."""
+    import dataclasses
+
+    X, Y, config, params, _ = model
+    cfg = dataclasses.replace(config, **fields)
+    Xs, Ys, stats = _requests(X, Y)
+    n = REQUESTS * B_SERVE
+    fn = serving.make_scorer_fn(params, cfg, S_SERVE, stats, device="cuda")
+    scorer = serving.Scorer(params, cfg, S_SERVE, stats, device="cuda")
+    batches = serving.fixed_batches(n, B_SERVE)
+
+    def eager(x, y, seed):
+        return serving.score_table(
+            lambda i, xb, yb: fn(xb, yb, seed + i), x, y, D_X, 1,
+            serving.fixed_batches(len(x), B_SERVE), torch.device("cuda"))
+
+    sides = {"eager": eager,
+             "graph": lambda x, y, seed: scorer.score(x, y, seed=seed,
+                                                      max_batch=B_SERVE)}
+    firsts = {}
+    for side, f in sides.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f(Xs[:B_SERVE], Ys[:B_SERVE], 0)
+        firsts[side] = time.perf_counter() - t0
+    captured = scorer._graphed.graphs.graphs()
+    turns, outs = [], {}
+    for i, side in enumerate(GRAPH_TURNS):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = sides[side](Xs, Ys, 100 + i // 2)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        if counts != {k: v * len(batches) for k, v in want.items()}:
+            fail(f"graphs, serve {label} ({side}): launches {counts} in "
+                 f"{len(batches)} requests, want per request {want}")
+        outs[(side, i // 2)] = out
+        turns.append({"side": side, "points_per_s": n / wall,
+                      "launches": counts})
+    for r in range(2):
+        for k in ("mean", "var", "log_density"):
+            if not np.array_equal(outs[("eager", r)][k],
+                                  outs[("graph", r)][k]):
+                fail(f"graphs, serve {label}: replayed {k} differs from "
+                     "the eager requests'")
+    return {"turns": turns,
+            "eager_points_per_s": [t["points_per_s"] for t in turns
+                                   if t["side"] == "eager"],
+            "graph_points_per_s": [t["points_per_s"] for t in turns
+                                   if t["side"] == "graph"],
+            "capture_s": captured[0].capture_s,
+            "first_request_s": firsts,
+            "launches_per_replay": dict(captured[0].launches)}
+
+
+def graphs_phase(torch, card: str, model, profile: bool) -> dict:
+    """12. graphs: eager against graphed steps and requests in turns
+    (eager, graph, eager, graph) within this call."""
+    from dgps_with_iwvi_torch import serving
+    from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    flag = flagship_model(torch)
+    out = {"train": {}, "serve": {}}
+    for label, batch, fields, steps, want in GRAPH_TRAIN:
+        out["train"][label] = r = _graph_train_case(
+            torch, train, build, flag, label, batch, fields, steps, want,
+            profile)
+        print(f"graphs, train {label}: eager "
+              + ", ".join(f"{v:.1f}" for v in r["eager_steps_per_s"])
+              + " / graph " + ", ".join(f"{v:.1f}" for v in
+                                        r["graph_steps_per_s"])
+              + f" steps/s; capture {r['capture_s']:.2f} s; peak "
+              f"{r['first_chunk_peak_mem_gib']['eager']:.2f} / "
+              f"{r['first_chunk_peak_mem_gib']['graph']:.2f} GiB, reserved "
+              f"{r['reserved_after_first_chunk_gib']['eager']:.2f} / "
+              f"{r['reserved_after_first_chunk_gib']['graph']:.2f} GiB "
+              f"(first chunk, eager / graph); MFU eager "
+              + ", ".join(f"{v:.5f}" for v in r["mfu"]["eager"])
+              + " / graph " + ", ".join(f"{v:.5f}" for v in
+                                        r["mfu"]["graph"])
+              + f"; bitwise equal; on {card}")
+    for label, fields, want in GRAPH_SERVE:
+        out["serve"][label] = r = _graph_serve_case(
+            torch, serving, build, model, label, fields, want)
+        print(f"graphs, serve {label}: eager "
+              + ", ".join(f"{v:.0f}" for v in r["eager_points_per_s"])
+              + " / graph " + ", ".join(f"{v:.0f}" for v in
+                                        r["graph_points_per_s"])
+              + f" points/s; capture {r['capture_s']:.2f} s; bitwise "
+              f"equal; on {card}")
+    return out
+
+
 def _parent_libs(hopper, build, parent: str) -> dict:
     """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
@@ -3595,6 +3885,10 @@ def main() -> int:
     rec["flops"] = flops_phase(torch, card, rec)
     rec["flops"]["phase_s"] = time.perf_counter() - t0
     print(f"flops: phase 11 took {rec['flops']['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    rec["graphs"] = graphs_phase(torch, card, model, opts.profile)
+    rec["graphs"]["phase_s"] = time.perf_counter() - t0
+    print(f"graphs: phase 12 took {rec['graphs']['phase_s']:.1f} s")
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
         wall = rec["slice"]["serve_s"] * 1e3 / REQUESTS
@@ -3628,7 +3922,11 @@ def main() -> int:
                 enumerate(rec["parallel"]["launches"])},
              "demo_toy_1d": rec["flops"]["demos"]["toy_1d"]["launches"],
              "demo_multitask":
-                 rec["flops"]["demos"]["multitask"]["launches"]}
+                 rec["flops"]["demos"]["multitask"]["launches"],
+             **{f"graphs_{kind}_{label}_{t['side']}{i // 2}": t["launches"]
+                for kind in ("train", "serve")
+                for label, r in rec["graphs"][kind].items()
+                for i, t in enumerate(r["turns"])}}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -3653,6 +3951,7 @@ def main() -> int:
     print("breadth: " + json.dumps(rec["breadth"]))
     print("parallel: " + json.dumps(rec["parallel"]))
     print("flops: " + json.dumps(rec["flops"]))
+    print("graphs: " + json.dumps(rec["graphs"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

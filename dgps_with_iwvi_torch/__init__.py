@@ -25,7 +25,9 @@ the kernel and likelihood families and the rest of the reference's
 breadth, several ranks over ``torch.distributed`` (``parallel``: the
 ('dp', 'k') mesh, the sharded trainer, sharded evaluation and serving),
 the per-step FLOP count and MFU (``utils.flops``) and the two demos
-(``demos``).
+(``demos``). On the card ``training.fit`` and ``serving.Scorer`` replay
+CUDA graphs (``utils.graphs``), as the reference jits its training
+chunk and its scorer.
 """
 
 __version__ = "0.1.0"

@@ -55,10 +55,10 @@ from dgps_with_iwvi_torch.models import (BuildArgs, build_model, layer_noise,
                                          load_build_args)
 from dgps_with_iwvi_torch.parallel import distributed
 from dgps_with_iwvi_torch.parallel.sharding import gather_rows
-from dgps_with_iwvi_torch.serving import (NormalizationStats, export_scorer,
-                                          fixed_batches, load_scorer,
-                                          make_scorer_fn, save_scorer,
-                                          score_table)
+from dgps_with_iwvi_torch.serving import (GraphedScore, NormalizationStats,
+                                          export_scorer, fixed_batches,
+                                          load_scorer, make_scorer_fn,
+                                          save_scorer, score_table)
 from dgps_with_iwvi_torch.training import TrainConfig, make_trainer
 from dgps_with_iwvi_torch.training.checkpoint import (latest_step,
                                                       restore_checkpoint)
@@ -262,16 +262,23 @@ def _score_live(args, config, params, Xn, Yn, d_y: int, device,
     """(outputs, seconds): the standardized table in fixed padded batches
     of --batch_size through the kernels (``serving.score_table``, --depth
     in flight, results narrowed to --transport), each batch's noise from
-    the generator seeded by its first row, as evaluation's chunks. Under a
-    mesh each rank scores its piece of every batch with the batch's noise
-    for those rows, and the pieces are gathered on every rank."""
+    the generator seeded by its first row, as evaluation's chunks. On the
+    card each batch is one replay of a CUDA graph (``GraphedScore``), as
+    the reference jits its scorer. Under a mesh each rank scores its piece
+    of every batch with the batch's noise for those rows, and the pieces
+    are gathered on every rank, eagerly."""
     n, d_in = Xn.shape
     S = args.num_predict_samples
     fn = make_scorer_fn(params, config, S, device=device)
     bs = min(args.batch_size, n)
     eval_seed = seeds(args.seed)[2]
     starts = [start for start, _, _ in fixed_batches(n, bs)]
+    stage = None
     if mesh is None:
+        if device.type == "cuda":
+            fn = GraphedScore(fn, d_in, d_y, device)
+            stage = fn.stage
+
         def call(i, xb, yb):
             return fn(xb, yb, chunk_seed(eval_seed, starts[i]))
         batches = fixed_batches(n, bs)
@@ -295,7 +302,7 @@ def _score_live(args, config, params, Xn, Yn, d_y: int, device,
         return score_table(
             call, Xn[:upto], None if Yn is None else Yn[:upto], d_in,
             d_y, which, device, d_mean=config.layers[-1].d_out,
-            depth=args.depth, transport=args.transport)
+            depth=args.depth, transport=args.transport, stage=stage)
 
     # the kernels' first use, outside the timed region
     score(batches[:1])

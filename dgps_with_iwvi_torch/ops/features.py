@@ -45,6 +45,16 @@ def _combined_lengthscales(kernel_params, raw_scales):
     return ls, ls + positive(raw_scales)
 
 
+def _prod_last(t: torch.Tensor) -> torch.Tensor:
+    """The product over the last dimension as a chain of multiplies:
+    ``torch.prod``'s backward on the card counts the zeros of its input on
+    the host, which a captured CUDA graph (``utils.graphs``) refuses."""
+    out = t[..., 0]
+    for d in range(1, t.shape[-1]):
+        out = out * t[..., d]
+    return out
+
+
 def multiscale_Kuu(kernel_params, Z: torch.Tensor,
                    raw_scales: torch.Tensor) -> torch.Tensor:
     """[M, M] covariance of the window integrals."""
@@ -54,7 +64,7 @@ def multiscale_Kuu(kernel_params, Z: torch.Tensor,
     c2 = a2[:, None, :] + a2[None, :, :] - torch.square(ls)   # [M, M, D]
     diff2 = torch.square(Z[:, None, :] - Z[None, :, :])
     d = torch.sum(diff2 / c2, dim=-1)
-    prefac = torch.prod(ls / torch.sqrt(c2), dim=-1)
+    prefac = _prod_last(ls / torch.sqrt(c2))
     return var * prefac * torch.exp(-0.5 * d)
 
 
@@ -69,5 +79,5 @@ def multiscale_Kuf(kernel_params, Z: torch.Tensor, raw_scales: torch.Tensor,
     xz = precision.matmul(X, (Z * inv_a2).T, fwd, bwd)
     zz = torch.sum(torch.square(Z) * inv_a2, dim=-1)          # [M]
     d2 = torch.clamp(xx - 2.0 * xz + zz, min=0.0)
-    Kfu = var * torch.prod(ls / a, dim=-1) * torch.exp(-0.5 * d2)
+    Kfu = var * _prod_last(ls / a) * torch.exp(-0.5 * d2)
     return Kfu.transpose(-1, -2)

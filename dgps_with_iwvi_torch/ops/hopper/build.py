@@ -14,7 +14,9 @@ launches and nowhere else, so a caller can show that a run went through
 the kernel (``reset_launches`` / ``launches``). A wrapper that launches
 one variant of a kernel (the epilogue with or without its mean, say) also
 names the variant, counted under ``"<kernel>:<variant>"`` by
-``variant_launches``.
+``variant_launches``. While a CUDA graph captures (``capturing``), a
+launch is recorded into the graph's tally instead, since a capture runs
+nothing; ``replayed`` adds the tally once per replay of the graph.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _launches = {name: 0 for name in KERNELS}
 _variant_launches: dict = {}
+# tallies of the CUDA graphs being captured, innermost last; a list that
+# every thread sees, since autograd's device thread launches the backward
+_captures: list = []
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -56,6 +61,11 @@ def plain_versions():
         yield
     finally:
         _plain_requested = saved
+
+
+def plain_requested() -> bool:
+    """Whether the caller is inside `plain_versions()`."""
+    return _plain_requested
 
 
 def use_plain(t) -> bool:
@@ -81,10 +91,40 @@ def variant_launches() -> dict:
 
 
 def count_launch(name: str, variant: str | None = None) -> None:
-    _launches[name] += 1
-    if variant is not None:
-        key = f"{name}:{variant}"
-        _variant_launches[key] = _variant_launches.get(key, 0) + 1
+    keys = [name] if variant is None else [name, f"{name}:{variant}"]
+    if _captures:
+        tally = _captures[-1]
+        for key in keys:
+            tally[key] = tally.get(key, 0) + 1
+        return
+    _add({key: 1 for key in keys})
+
+
+def _add(tally: dict) -> None:
+    for key, n in tally.items():
+        if ":" in key:
+            _variant_launches[key] = _variant_launches.get(key, 0) + n
+        else:
+            _launches[key] += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside this block (a CUDA graph's capture) a launch is recorded,
+    not counted: yields the tally {kernel or "<kernel>:<variant>":
+    launches}, which ``replayed`` adds once per replay."""
+    tally: dict = {}
+    _captures.append(tally)
+    try:
+        yield tally
+    finally:
+        _captures.remove(tally)
+
+
+def replayed(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    `tally`."""
+    _add(tally)
 
 
 def _nvcc() -> str:

@@ -149,16 +149,22 @@ def _check(kernel, A, W, q_mu, named):
 
 
 _wop_cache: dict = {}
+_wop_outgrown: list = []
 
 
 def _wop_scratch(lib, device, stream: int, m: int, d: int) -> torch.Tensor:
     """K2's bf16 scratch (W's blocks and q_mu's split, written by the call
     itself), kept per (device, stream) and grown as needed: calls on one
-    stream run in order, so one buffer serves them all."""
+    stream run in order, so one buffer serves them all. An outgrown buffer
+    is kept, not freed: a CUDA graph captured with it (``utils.graphs``,
+    which warms up on its capture stream, so the buffer is made before
+    the capture) still writes to it at every replay."""
     elems = lib.epilogue_wop_elems(m, d)
     key = (device.index, stream)
     buf = _wop_cache.get(key)
     if buf is None or buf.numel() < elems:
+        if buf is not None:
+            _wop_outgrown.append(buf)
         buf = torch.empty((elems,), dtype=torch.bfloat16, device=device)
         _wop_cache[key] = buf
     return buf

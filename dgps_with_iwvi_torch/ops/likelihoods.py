@@ -428,9 +428,12 @@ def multiclass_params(*, dtype=torch.float32, device="cuda"):
 
 def _class_onehot(y, num_classes: int, dtype):
     """[..., 1] float class column -> [..., C] one-hot, the label clipped
-    into [0, C) (an all-zero row would corrupt ``_robustmax_p_win``)."""
+    into [0, C) (an all-zero row would corrupt ``_robustmax_p_win``). A
+    comparison, not ``one_hot``, which reads the labels' range to the host
+    off the card."""
     idx = torch.clamp(y[..., 0].long(), 0, num_classes - 1)
-    return torch.nn.functional.one_hot(idx, num_classes).to(dtype)
+    classes = torch.arange(num_classes, device=y.device)
+    return (idx[..., None] == classes).to(dtype)
 
 
 def _robustmax_p_win(mean, var, onehot, n_points):

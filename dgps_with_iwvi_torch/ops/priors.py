@@ -52,10 +52,9 @@ def _log_density(raw: torch.Tensor, kind: str, a: float,
         raise ValueError(f"unknown prior kind {kind!r}")
     x = positive(raw)
     log_jac = torch.sum(F.logsigmoid(raw))
-    if kind == "gamma":  # shape a, rate b
-        kw = dict(dtype=raw.dtype, device=raw.device)
-        logp = (a * torch.log(torch.tensor(b, **kw))
-                - torch.lgamma(torch.tensor(a, **kw))
+    if kind == "gamma":  # shape a, rate b; the constant in Python, as a
+        # tensor made from it would be a host copy in every step
+        logp = (a * math.log(b) - math.lgamma(a)
                 + (a - 1.0) * torch.log(x) - b * x)
         return torch.sum(logp) + log_jac
     lx = torch.log(x)  # lognormal: mu a, sigma b

@@ -51,6 +51,7 @@ from .ops.hopper import build
 from .ops.hopper.conditional import philox_normal
 from .ops.precision import f32_reductions
 from .params import params_to_device
+from .utils import graphs
 
 _FORMAT_VERSION = 1
 _EXAMPLE_ROWS = 16  # batch of the example inputs of a polymorphic export
@@ -86,7 +87,8 @@ def make_scorer_fn(params, config, num_samples: int,
     With ``stats``, inputs are raw units and outputs are mapped back
     (mean * y_std + y_mean, var * y_std^2, ld - sum(log y_std)); the
     statistics are float32, as in the reference. The noise comes from a
-    torch generator seeded with ``seed``, or from ``eps`` (per layer, see
+    torch generator seeded with ``seed`` (or from ``seed`` itself where it
+    is a ``torch.Generator``), or from ``eps`` (per layer, see
     ``models.dgp.propagate``). factors: Kuu factors from
     ``prefactor_gp_layers`` to reuse for every call (else each call
     factors Kuu)."""
@@ -105,7 +107,8 @@ def make_scorer_fn(params, config, num_samples: int,
         if stats is not None:
             xb = (xb - x_mean) / x_std
             yb = (yb - y_mean) / y_std
-        gen = (None if eps is not None else
+        gen = (None if eps is not None else seed
+               if isinstance(seed, torch.Generator) else
                torch.Generator(device=device).manual_seed(int(seed)))
         (m, v), ld = predict_y_and_log_density(
             params, config, xb, yb, gen, num_samples, eps=eps,
@@ -117,6 +120,44 @@ def make_scorer_fn(params, config, num_samples: int,
         return m, v, ld
 
     return score
+
+
+class GraphedScore:
+    """``make_scorer_fn``'s ``score`` replayed from CUDA graphs on the card
+    (``utils.graphs``), as the reference jits its scorer: one graph per
+    batch shape and policy, each drawing from one registered generator
+    that is seeded with the call's seed before it runs, so that a replayed
+    batch equals the eager call for that seed. ``stage(rows)`` is the
+    static input [rows, d_in + d_y] of a shape, which ``score_table``
+    fills from its pinned table; a batch given elsewhere is copied in.
+    The outputs are the graph's own tensors, overwritten by the next call
+    of the same shape. ``graphs`` is the ``utils.graphs.GraphCache``."""
+
+    def __init__(self, fn, d_in: int, d_y: int, device):
+        self.d_in, self.d_y = d_in, d_y
+        self.device = torch.device(device)
+        self._fn = fn
+        self._gen = torch.Generator(device=self.device)
+        self.graphs = graphs.GraphCache(self.device, (self._gen,))
+        self._inputs: dict = {}
+
+    def stage(self, rows: int) -> torch.Tensor:
+        batch = self._inputs.get(rows)
+        if batch is None:
+            batch = self._inputs[rows] = torch.zeros(
+                (rows, self.d_in + self.d_y), dtype=torch.float32,
+                device=self.device)
+        return batch
+
+    def __call__(self, xb: torch.Tensor, yb: torch.Tensor, seed: int):
+        rows, d_in = xb.shape[0], self.d_in
+        batch = self.stage(rows)
+        if xb.data_ptr() != batch.data_ptr():
+            batch[:, :d_in].copy_(xb)
+            batch[:, d_in:].copy_(yb)
+        self._gen.manual_seed(int(seed))
+        return self.graphs((rows,), lambda: self._fn(
+            batch[:, :d_in], batch[:, d_in:], self._gen))
 
 
 def label_width(config) -> int:
@@ -134,7 +175,7 @@ def label_width(config) -> int:
 def score_table(call, X, Y, d_in: int, d_y: int, batches, device, *,
                 d_mean: int | None = None, depth: int | None = None,
                 transport: str = "float32",
-                transport_in: str = "float32") -> dict:
+                transport_in: str = "float32", stage=None) -> dict:
     """The batch loop that ``Scorer``, ``ServingArtifact`` and the serve
     CLI share. X [n, d_in] and Y [n, d_y] (or None: zeros, and no
     log_density) form one host table, zero-padded past n; the mean and
@@ -153,7 +194,10 @@ def score_table(call, X, Y, d_in: int, d_y: int, batches, device, *,
     crosses to the device in, upcast to float32 there (it rounds the
     inputs); ``transport`` the dtype the results cross back in, cast on
     the device (it rounds the delivered values only). Results come back
-    in one copy."""
+    in one copy. ``stage(rows)``, where given, is the float32 device
+    buffer [rows, d_in + d_y] that a batch is copied into (a CUDA graph's
+    static input, ``GraphedScore.stage``); else each batch is a new
+    tensor."""
     d_out = d_y if d_mean is None else d_mean
     X = np.asarray(X, np.float32)
     n = X.shape[0]
@@ -180,8 +224,11 @@ def score_table(call, X, Y, d_in: int, d_y: int, batches, device, *,
         for i, (start, size, keep) in enumerate(batches):
             if depth is not None and len(done) >= depth:
                 done[len(done) - depth].synchronize()
-            batch = host[start:start + size].to(device,
-                                                non_blocking=True).float()
+            src = host[start:start + size]
+            if stage is None:
+                batch = src.to(device, non_blocking=True).float()
+            else:
+                batch = stage(size).copy_(src, non_blocking=True)
             m, v, ld = call(i, batch[:, :d_in], batch[:, d_in:])
             outs.append(torch.cat([m[:keep], v[:keep], ld[:keep, None]],
                                   1).to(out_dt))
@@ -204,7 +251,9 @@ def fixed_batches(n: int, size: int) -> list:
 
 
 class Scorer:
-    """Scores arbitrary-length tables in fixed-size batches on the card."""
+    """Scores arbitrary-length tables in fixed-size batches on the card,
+    each batch one replay of a CUDA graph (``GraphedScore``); on the CPU
+    eagerly."""
 
     def __init__(self, params, config, num_samples: int,
                  stats: NormalizationStats | None = None, *, device="cuda"):
@@ -217,6 +266,9 @@ class Scorer:
         self.d_y = label_width(config)
         self._fn = make_scorer_fn(params, config, num_samples, stats,
                                   device=self.device)
+        self._graphed = (GraphedScore(self._fn, self.d_in, self.d_y,
+                                      self.device)
+                         if self.device.type == "cuda" else None)
 
     def score(self, X, Y=None, *, seed: int = 0,
               max_batch: int = 8192) -> dict:
@@ -230,10 +282,13 @@ class Scorer:
         if Y is None and self.config.likelihood == "switched_gaussian":
             raise ValueError("a switched_gaussian model needs the "
                              "task-tagged Y to score")
+        fn, stage = self._fn, None
+        if self._graphed is not None:
+            fn, stage = self._graphed, self._graphed.stage
         return score_table(
-            lambda i, xb, yb: self._fn(xb, yb, seed + i), X, Y, self.d_in,
+            lambda i, xb, yb: fn(xb, yb, seed + i), X, Y, self.d_in,
             self.d_y, fixed_batches(len(X), max_batch), self.device,
-            d_mean=self.d_out)
+            d_mean=self.d_out, stage=stage)
 
 
 def artifact_noise(seed, config, num_samples: int, batch: int,

@@ -5,8 +5,8 @@ own modules) ``checkpoint`` and ``monitor``
 from .natgrad import (extract_natvars, insert_natvars, natgrad_layer_ids,
                       natgrad_update, natvars_to_canonical)
 from .train import (TrainConfig, TrainState, fit, gamma_schedule,
-                    loss_and_grads, make_trainer, resolve_full_batch,
-                    resolve_solve_bwd)
+                    graphed_chunk_fn, loss_and_grads, make_trainer,
+                    resolve_full_batch, resolve_solve_bwd)
 
 __all__ = [
     "TrainConfig",
@@ -14,6 +14,7 @@ __all__ = [
     "extract_natvars",
     "fit",
     "gamma_schedule",
+    "graphed_chunk_fn",
     "insert_natvars",
     "loss_and_grads",
     "make_trainer",

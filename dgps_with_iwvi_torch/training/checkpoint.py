@@ -112,6 +112,12 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: dict,
     try:
         _copy_into(tmpl.rest, state["rest"], "rest")
         _copy_into(tmpl.natvars, state["natvars"], "natvars")
+        # Adam is capturable on the card only (training/train.py): the
+        # template's device decides, so a state saved on one device
+        # resumes on another
+        for group_saved, group in zip(state["opt_state"]["param_groups"],
+                                      tmpl.opt_state.param_groups):
+            group_saved["capturable"] = group["capturable"]
         tmpl.opt_state.load_state_dict(state["opt_state"])
     except ValueError as e:
         raise ValueError(

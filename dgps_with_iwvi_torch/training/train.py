@@ -11,6 +11,9 @@ Differences from the reference, by design:
 - PyTorch runs eagerly, so ``chunk_fn`` is a Python loop of
   ``steps_per_call`` steps with no host sync inside, and
   ``TrainConfig.scan_unroll`` (a ``lax.scan`` knob) has no counterpart.
+  Where the reference jits that chunk (l.345), ``fit`` on the card
+  replays one CUDA graph per step (``graphed_chunk_fn``,
+  ``utils.graphs``); the ``mesh=`` trainer and the CPU path stay eager.
 - The state is updated in place: Adam steps the ``rest`` tensors it holds
   (a ``torch.optim.Adam``), and ``step_fn`` returns the same objects.
 - Randomness is an explicit ``torch.Generator``, or injected: ``idx`` (the
@@ -30,6 +33,7 @@ import torch
 
 from ..models import dgp
 from ..ops.precision import Numerics
+from ..utils import graphs
 from . import natgrad as ng
 
 
@@ -209,8 +213,9 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
     """Returns (init_fn, step_fn, chunk_fn, params_fn).
 
     init_fn(params) -> TrainState
-    step_fn(state, X, Y, generator=None, *, idx=None, eps=None)
-        -> (state, loss)
+    step_fn(state, X, Y, generator=None, *, idx=None, eps=None, gamma=None)
+        -> (state, loss); gamma: the natgrad step size, a float or a 0-d
+        float64 tensor (default ``gamma_schedule(tc, state.step)``)
     chunk_fn(state, X, Y, generator) -> (state, losses [steps_per_call])
     params_fn(state) -> canonical full params
     """
@@ -226,14 +231,19 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
                          if k not in ("q_mu", "q_sqrt")}
         rest = _map(lambda t: t.detach().clone().requires_grad_(
             t.is_floating_point()), dict(params, layers=layers))
-        adam = torch.optim.Adam([t for t in _leaves(rest) if t.requires_grad],
-                                lr=tc.lr, betas=(0.9, 0.999), eps=1e-8)
+        leaves = [t for t in _leaves(rest) if t.requires_grad]
+        # capturable: its step count and bias corrections stay on the card,
+        # so that a CUDA graph can capture the update (fit)
+        adam = torch.optim.Adam(
+            leaves, lr=tc.lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=bool(leaves) and leaves[0].device.type == "cuda")
         return TrainState(rest, natvars, adam, 0)
 
     def step_fn(state: TrainState, X, Y, generator=None, *, idx=None,
-                eps=None):
+                eps=None, gamma=None):
         policy = policies[tc.minibatch_size >= X.shape[0]]
-        gamma = gamma_schedule(tc, state.step)
+        if gamma is None:
+            gamma = gamma_schedule(tc, state.step)
         if layer_ids and tc.schedule == "alternating":
             idx1, idx2 = idx if idx is not None else (None, None)
             eps1, eps2 = eps if eps is not None else (None, None)
@@ -272,6 +282,61 @@ def make_trainer(config: dgp.DGPConfig, tc: TrainConfig):
     return init_fn, step_fn, chunk_fn, params_fn
 
 
+def write_step(step_fn, state: TrainState, X, Y, generator, gamma, loss):
+    """One ``step_fn`` step whose results stay in static tensors: gamma
+    read from the 0-d float64 tensor `gamma`, the new natvars written into
+    ``state.natvars``' own tensors (Adam already steps ``state.rest`` in
+    place) and the loss into `loss`. The step that ``fit``'s CUDA graph
+    captures: a replay reads and writes the same tensors."""
+    new, value = step_fn(state, X, Y, generator, gamma=gamma)
+    for old_nv, new_nv in zip(state.natvars, new.natvars):
+        for k, v in new_nv.items():
+            if v is not old_nv[k]:
+                old_nv[k].copy_(v)
+    loss.copy_(value)
+
+
+def graphed_chunk_fn(step_fn, tc: TrainConfig, state: TrainState, X, Y,
+                     generator):
+    """``chunk_fn`` on the card: every step replays one CUDA graph of
+    ``write_step`` on `state`'s tensors (``utils.graphs``; the first step
+    runs for real as the graph's warm-up, then the step is captured), with
+    `generator` registered so that each replay draws as an eager step
+    would. The chunk function then takes this `state`, `X`, `Y` and
+    `generator` only, as the graph holds their tensors; the state it
+    returns holds the same tensors. Gamma is written to a static scalar
+    before each step in which it changes. The function's ``graphs`` is its
+    ``utils.graphs.GraphCache``."""
+    cache = graphs.GraphCache(X.device, (generator,))
+    gamma = torch.zeros((), dtype=torch.float64, device=X.device)
+    loss = torch.zeros((), dtype=X.dtype, device=X.device)
+    gamma_held = None
+
+    def body():
+        write_step(step_fn, state, X, Y, generator, gamma, loss)
+
+    def chunk_fn(state_: TrainState, X_, Y_, generator_):
+        nonlocal gamma_held
+        if (state_.rest is not state.rest
+                or state_.natvars is not state.natvars or X_ is not X
+                or Y_ is not Y or generator_ is not generator):
+            raise ValueError("a graphed chunk runs on the state, data and "
+                             "generator it was made for")
+        losses = torch.empty((tc.steps_per_call,), dtype=loss.dtype,
+                             device=loss.device)
+        for i in range(tc.steps_per_call):
+            g = gamma_schedule(tc, state_.step + i)
+            if g != gamma_held:
+                gamma.fill_(g)
+                gamma_held = g
+            cache((), body)
+            losses[i].copy_(loss)
+        return state_._replace(step=state_.step + tc.steps_per_call), losses
+
+    chunk_fn.graphs = cache
+    return chunk_fn
+
+
 def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
         X: torch.Tensor, Y: torch.Tensor, tc: TrainConfig, callback=None,
         state: TrainState | None = None, mesh=None):
@@ -284,6 +349,9 @@ def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
     continue a run from a chunk boundary, e.g. one restored by
     ``training.checkpoint.restore_checkpoint`` together with the
     generator's state. Returns (canonical params, state).
+
+    On the card each step replays one CUDA graph (``graphed_chunk_fn``):
+    the state's tensors are then written in place, the natvars too.
 
     mesh: a ('dp', 'k') mesh (``parallel.make_mesh``) trains with the
     sharded step (``parallel.sharding``): X and Y are the global arrays,
@@ -300,9 +368,11 @@ def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
         state = sharding.replicate(mesh, init_fn(params) if state is None
                                    else state)
     else:
-        init_fn, _, chunk_fn, params_fn = make_trainer(config, tc)
+        init_fn, step_fn, chunk_fn, params_fn = make_trainer(config, tc)
         if state is None:
             state = init_fn(params)
+        if X.device.type == "cuda":
+            chunk_fn = graphed_chunk_fn(step_fn, tc, state, X, Y, generator)
     if state.step % tc.steps_per_call:
         raise ValueError(
             f"resume step {state.step} is not a multiple of steps_per_call="

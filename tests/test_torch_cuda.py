@@ -571,3 +571,224 @@ def test_cuda_and_cpu_programs_of_one_artifact_agree(gen, tmp_path):
     b = on_cpu.score(X[:97], Y[:97], seed=2, max_batch=32)
     for k in ("mean", "var", "log_density"):
         assert np.max(np.abs(a[k] - b[k]) / (1.0 + np.abs(b[k]))) <= 1e-3
+
+
+# ---- CUDA graphs (utils/graphs.py): each replay against the eager call.
+# A replay runs the captured kernels in the eager order on the same values,
+# and every kernel on these paths is deterministic, so the gates are
+# bitwise; the launch counts of a replayed run equal the eager run's.
+
+def _counts():
+    counts = {k: v for k, v in build.launches().items() if v}
+    counts.update(build.variant_launches())
+    return counts
+
+
+def _flagship(**fields):
+    """The flagship model (LGG, IW K=20, M=128, natgrad final) on data of
+    kin8nm's shape, [7372, 8], on the card; a TrainConfig at B=512."""
+    from dgps_with_iwvi_torch import training as train
+
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((7372, 8)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((7372, 1))).astype(
+        np.float32)
+    config, params = build_model(0, BuildArgs(
+        configuration="LGG", mode="IW", num_inducing=128,
+        num_iw_samples=20), X, Y, device="cuda")
+    config = dataclasses.replace(config, **fields)
+    tc = train.TrainConfig(natgrad="final", minibatch_size=512,
+                           steps_per_call=10)
+    return config, params, tc, torch.from_numpy(X).cuda(), \
+        torch.from_numpy(Y).cuda()
+
+
+def _state_leaves(state) -> list:
+    from dgps_with_iwvi_torch.training import train
+
+    opt = state.opt_state.state_dict()["state"]
+    return (train._leaves(state.rest) + train._leaves(state.natvars)
+            + [t for s in opt.values() for t in s.values()])
+
+
+@pytest.mark.parametrize("case", ["flagship", "use_pallas", "gamma_warmup"])
+def test_replayed_steps_equal_eager_steps(gen, case):
+    """Two chunks of ten steps from one state and generator state: the
+    graphed chunk (one real step, the capture, then replays) against
+    make_trainer's eager chunk: losses, every state leaf, Adam's moments
+    and the generator bitwise, the launch counts of each chunk equal."""
+    from dgps_with_iwvi_torch.training import train
+
+    config, params, tc, X, Y = _flagship(use_pallas=case == "use_pallas")
+    if case == "gamma_warmup":
+        tc = dataclasses.replace(tc, gamma=5e-2, gamma_warmup=15)
+    init, step, chunk, _ = train.make_trainer(config, tc)
+    s_e = init(params)
+    s_g = init(params)
+    assert s_g.opt_state.param_groups[0]["capturable"]
+    g_e = torch.Generator(device="cuda").manual_seed(3)
+    g_g = torch.Generator(device="cuda").manual_seed(3)
+    graphed = train.graphed_chunk_fn(step, tc, s_g, X, Y, g_g)
+    for _ in range(2):
+        build.reset_launches()
+        s_e, l_e = chunk(s_e, X, Y, g_e)
+        eager = _counts()
+        build.reset_launches()
+        s_g, l_g = graphed(s_g, X, Y, g_g)
+        assert _counts() == eager
+        assert torch.equal(l_e, l_g)
+    for a, b in zip(_state_leaves(s_e), _state_leaves(s_g), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(g_e.get_state(), g_g.get_state())
+
+
+# (build flags, TrainConfig fields): every single-device policy of fit
+POLICIES = {
+    "alternating": ({}, {"schedule": "alternating"}),
+    "full_batch": ({}, {"minibatch_size": 2000}),
+    "natgrad_all": ({}, {"natgrad": "all"}),
+    "adam_only": ({}, {"natgrad": "none"}),
+    "adam_only_use_pallas": ({"use_pallas": True}, {"natgrad": "none"}),
+    "multiscale_priors": ({"feature": "multiscale", "priors": (
+        ("kernel_variance", "gamma", 2.0, 3.0),
+        ("noise_variance", "lognormal", -2.0, 1.0))}, {}),
+    "no_white": ({"white": False}, {}),
+    "q_diag": ({"q_diag": True}, {}),
+    "multiclass_matern": ({"likelihood": "multiclass", "num_classes": 3,
+                           "kernel_kind": "matern52+linear"}, {}),
+    "student_t": ({"likelihood": "student_t"}, {}),
+}
+
+
+@pytest.mark.parametrize("policy", list(POLICIES))
+def test_every_policy_replays_its_eager_steps(gen, policy):
+    """A small LGG (d_x=4, M=64, K=8, B=256) under each policy: two
+    chunks of five steps, the graphed chunk against the eager one from one
+    state and generator state, the launch counts equal. At M=64 under
+    the natgrad policies cuBLAS picks another kernel for natgrad's
+    matrix-vector products while the step is captured (the same inputs
+    give another rounding; the eager steps repeat bitwise, and the
+    flagship at M=128 replays bitwise, tests above), which moved q_mu by
+    one float32 unit at the first replay, and ten Adam steps carry that
+    into every leaf; so this test holds chip_smoke.py's step gates: each
+    loss within 1e-4 relative, each state leaf within 2e-2 of its largest
+    eager value (a first run at 1e-4 read gaps up to 4e-3 of it)."""
+    from dgps_with_iwvi_torch.training import train
+
+    flags, fields = POLICIES[policy]
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((2000, 4)).astype(np.float32)
+    if flags.get("likelihood") == "multiclass":
+        Y = ((X[:, :1] > 0).astype(np.float32) + (X[:, 1:2] > 0.5))
+    else:
+        Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((2000, 1))
+             ).astype(np.float32)
+    config, params = build_model(0, BuildArgs(
+        configuration="LGG", mode="IW", num_inducing=64, num_iw_samples=8,
+        **flags), X, Y, device="cuda")
+    tc = train.TrainConfig(**{"natgrad": "final", "minibatch_size": 256,
+                              "steps_per_call": 5, **fields})
+    Xc, Yc = torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()
+    init, step, chunk, _ = train.make_trainer(config, tc)
+    s_e, s_g = init(params), init(params)
+    g_e = torch.Generator(device="cuda").manual_seed(3)
+    g_g = torch.Generator(device="cuda").manual_seed(3)
+    graphed = train.graphed_chunk_fn(step, tc, s_g, Xc, Yc, g_g)
+    for _ in range(2):
+        build.reset_launches()
+        s_e, l_e = chunk(s_e, Xc, Yc, g_e)
+        eager = _counts()
+        build.reset_launches()
+        s_g, l_g = graphed(s_g, Xc, Yc, g_g)
+        assert _counts() == eager
+        torch.testing.assert_close(l_g, l_e, rtol=1e-4, atol=0)
+    for a, b in zip(_state_leaves(s_e), _state_leaves(s_g), strict=True):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=2e-2 * float(a.abs().max()))
+
+
+def test_capture_makes_no_host_sync(gen):
+    """The warm-up step, the capture and the replays of the flagship step,
+    and of a request on each serving route, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation waits for
+    the card."""
+    from dgps_with_iwvi_torch import serving
+    from dgps_with_iwvi_torch.ops.precision import f32_reductions
+    from dgps_with_iwvi_torch.training import train
+
+    config, params, tc, X, Y = _flagship()
+    init, step, _, _ = train.make_trainer(config, tc)
+    state = init(params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    graphed = train.graphed_chunk_fn(step, tc, state, X, Y, g)
+    fns = [serving.GraphedScore(serving.make_scorer_fn(
+        params, dataclasses.replace(config, **fields), 100,
+        device="cuda"), 8, 1, "cuda") for fields in (
+        {"serve_pallas": False}, {}, {"use_pallas": True})]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, losses = graphed(state, X, Y, g)
+        with torch.no_grad(), f32_reductions():
+            for fn in fns:
+                for seed in range(3):
+                    fn(X[:1024], Y[:1024], seed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.parametrize("route", ["k2", "default", "use_pallas"])
+def test_replayed_request_equals_eager_request(gen, route):
+    """Scorer.score (one graph per batch shape, replayed, a ragged last
+    batch padded) against the same batches through make_scorer_fn's eager
+    calls, seed + i per batch: every output bitwise, the launch counts
+    equal."""
+    from dgps_with_iwvi_torch import serving
+
+    fields = {"k2": {"serve_pallas": False}, "default": {},
+              "use_pallas": {"use_pallas": True}}[route]
+    config, params, _, X, Y = _flagship(**fields)
+    Xn, Yn = X[:3000].cpu().numpy(), Y[:3000].cpu().numpy()
+    scorer = serving.Scorer(params, config, 100, device="cuda")
+    eager = serving.make_scorer_fn(params, config, 100, device="cuda")
+    for seed in (0, 11):
+        build.reset_launches()
+        got = scorer.score(Xn, Yn, seed=seed, max_batch=1024)
+        graphed = _counts()
+        build.reset_launches()
+        want = serving.score_table(
+            lambda i, xb, yb: eager(xb, yb, seed + i), Xn, Yn, 8, 1,
+            serving.fixed_batches(3000, 1024), torch.device("cuda"))
+        assert _counts() == graphed
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_resumed_graphed_fit_equals_straight_run(gen, tmp_path):
+    """fit on the card (graphed) for 40 steps, checkpointed at step 20;
+    a fit resumed from that checkpoint (its first step real, then its own
+    capture) ends bitwise where the straight run ends."""
+    from dgps_with_iwvi_torch.training import checkpoint, train
+
+    config, params, tc, X, Y = _flagship()
+    tc = dataclasses.replace(tc, iterations=40)
+    gen_s = torch.Generator(device="cuda").manual_seed(7)
+
+    def save(step, loss, state):
+        if step == 20:
+            checkpoint.save_checkpoint(str(tmp_path), step, state, gen_s)
+
+    _, straight = train.fit(gen_s, config, params, X, Y, tc, callback=save)
+    init = train.make_trainer(config, tc)[0]
+    back = checkpoint.restore_checkpoint(
+        str(tmp_path), 20, {"state": init(params),
+                            "generator": torch.Generator(device="cuda")})
+    assert back["state"].opt_state.param_groups[0]["capturable"]
+    _, resumed = train.fit(back["generator"], config, params, X, Y, tc,
+                           state=back["state"])
+    assert resumed.step == straight.step == 40
+    for a, b in zip(_state_leaves(straight), _state_leaves(resumed),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_s.get_state(), back["generator"].get_state())

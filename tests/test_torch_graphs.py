@@ -1,0 +1,397 @@
+"""The port's CUDA-graph layer (``utils/graphs.py``) and what it captures,
+on the CPU.
+
+A graph needs the card, so here the CUDA calls are replaced: the real
+``Graph`` with a fake capture (the bookkeeping of launch counts), and the
+whole ``Graph`` with ``FakeGraph``, which re-runs the captured call at each
+replay. What a replay does on the card, it does here on the same static
+tensors: the graphed training chunk and the graphed scorer are then held
+to the eager step in float64 and the eager scorer, bit for bit, since the
+same operations run on the same values (gamma read from a float64 tensor
+rounds as the Python float does). The step body is also run under a
+dispatch mode that fails on any operation that would make the host wait
+for the card, or copy from host memory, inside a captured step.
+"""
+
+import dataclasses
+import importlib
+import tomllib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+
+from dgps_with_iwvi_torch.models import BuildArgs, build_model
+from dgps_with_iwvi_torch.ops.hopper import build
+from dgps_with_iwvi_torch.serving import (GraphedScore, fixed_batches,
+                                          make_scorer_fn, score_table)
+from dgps_with_iwvi_torch.training import (TrainConfig, checkpoint,
+                                           gamma_schedule, make_trainer)
+from dgps_with_iwvi_torch.training import natgrad as ng
+from dgps_with_iwvi_torch.training import train
+from dgps_with_iwvi_torch.utils import graphs
+
+N, D_X, M, K, B = 64, 3, 8, 4, 16
+LGG = dict(configuration="LGG", mode="IW", num_inducing=M, num_iw_samples=K)
+
+
+class FakeGraph:
+    """``utils.graphs.Graph`` on the CPU: the first call runs for real (the
+    warm-up); the capture records the call; each replay runs it again on
+    the same tensors, its launches tallied as a capture tallies them and
+    the tally then counted once, as a replay counts."""
+
+    made: list = []
+
+    def __init__(self, fn, *, device, generators=()):
+        self.fn, self.generators, self.replays = fn, generators, 0
+        self.first = fn()
+        self.launches = None
+        FakeGraph.made.append(self)
+
+    def replay(self):
+        with build.capturing() as tally:
+            out = self.fn()
+        if self.launches is None:
+            self.launches = tally
+        assert tally == self.launches
+        build.replayed(self.launches)
+        self.replays += 1
+        return out
+
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    FakeGraph.made = []
+    monkeypatch.setattr(graphs, "Graph", FakeGraph)
+    return FakeGraph.made
+
+
+def _data(likelihood: str = "gaussian"):
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N, D_X))
+    if likelihood == "bernoulli":
+        Y = (X[:, :1] > 0).astype(np.float64)
+    elif likelihood in ("multiclass", "softmax", "ordinal"):
+        Y = (X[:, :1] > 0).astype(np.float64) + (X[:, 1:2] > 0.5)
+    else:
+        Y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+    return X, Y
+
+
+# (build flags beside LGG's, TrainConfig fields): every single-device
+# policy that fit runs
+CASES = {
+    "joint": ({}, {}),
+    "alternating": ({}, {"schedule": "alternating"}),
+    "full_batch": ({}, {"minibatch_size": N}),
+    "gamma_warmup": ({}, {"gamma_warmup": 6, "gamma": 0.05}),
+    "natgrad_all": ({}, {"natgrad": "all"}),
+    "adam_only": ({}, {"natgrad": "none"}),
+    "use_pallas": ({"use_pallas": True}, {}),
+    "multiscale_priors": ({"feature": "multiscale", "priors": (
+        ("kernel_variance", "gamma", 2.0, 3.0),
+        ("noise_variance", "lognormal", -2.0, 1.0))}, {}),
+    "no_white": ({"white": False}, {}),
+    "q_diag": ({"q_diag": True}, {}),
+    "multiclass_matern": ({"likelihood": "multiclass", "num_classes": 3,
+                           "kernel_kind": "matern52+linear"}, {}),
+    "softmax": ({"likelihood": "softmax", "num_classes": 3}, {}),
+    "ordinal": ({"likelihood": "ordinal", "num_classes": 3}, {}),
+    "bernoulli": ({"likelihood": "bernoulli"}, {}),
+    "student_t": ({"likelihood": "student_t"}, {}),
+}
+
+
+def _model(case: str, dtype=torch.float64):
+    flags, fields = CASES[case]
+    X, Y = _data(flags.get("likelihood", "gaussian"))
+    config, params = build_model(0, BuildArgs(**LGG, **flags), X, Y,
+                                 device="cpu", dtype=dtype)
+    tc = TrainConfig(**{"natgrad": "final", "minibatch_size": B,
+                        "steps_per_call": 5, "gamma": 1e-2, **fields})
+    return (config, params, tc, torch.from_numpy(X).to(dtype),
+            torch.from_numpy(Y).to(dtype))
+
+
+def _leaves(state) -> list:
+    opt = state.opt_state.state_dict()["state"]
+    return (train._leaves(state.rest) + train._leaves(state.natvars)
+            + [t for s in opt.values() for t in s.values()])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_graphed_chunk_equals_eager_chunk(fake_graphs, case):
+    """Ten steps in two chunks of five: the graphed chunk (the step body
+    with its static buffers, one capture, nine replays) against
+    make_trainer's eager chunk from the same state and generator: losses,
+    every state leaf, Adam's moments and the generator bitwise."""
+    config, params, tc, X, Y = _model(case)
+    init, step, chunk, _ = make_trainer(config, tc)
+    s_e, g_e = init(params), torch.Generator().manual_seed(5)
+    s_g, g_g = init(params), torch.Generator().manual_seed(5)
+    graphed = train.graphed_chunk_fn(step, tc, s_g, X, Y, g_g)
+    natvar_ids = [id(t) for t in train._leaves(s_g.natvars)]
+    for _ in range(2):
+        s_e, l_e = chunk(s_e, X, Y, g_e)
+        s_g, l_g = graphed(s_g, X, Y, g_g)
+        assert torch.equal(l_e, l_g)
+    assert s_g.step == s_e.step == 10
+    # the natvars were written in place: the graph's static tensors
+    assert [id(t) for t in train._leaves(s_g.natvars)] == natvar_ids
+    for a, b in zip(_leaves(s_e), _leaves(s_g), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(g_e.get_state(), g_g.get_state())
+    assert len(fake_graphs) == 1 and fake_graphs[0].replays == 9
+    assert fake_graphs[0].generators == (g_g,)
+
+
+def test_graphed_chunk_refuses_another_state(fake_graphs):
+    config, params, tc, X, Y = _model("joint")
+    init, step, _, _ = make_trainer(config, tc)
+    state, gen = init(params), torch.Generator().manual_seed(0)
+    graphed = train.graphed_chunk_fn(step, tc, state, X, Y, gen)
+    with pytest.raises(ValueError, match="state, data and generator"):
+        graphed(init(params), X, Y, gen)
+    with pytest.raises(ValueError, match="state, data and generator"):
+        graphed(state, X.clone(), Y, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gamma_from_tensor_matches_schedule(dtype):
+    """At every step of a warm-up and after it, the natgrad update with
+    gamma read from the float64 scalar that the graph reads equals the
+    update with gamma_schedule's Python float, bitwise; so does the
+    value the scalar holds."""
+    _, params, tc, _, _ = _model("gamma_warmup")
+    final = {k: params["layers"][2][k].to(dtype) for k in ("q_mu", "q_sqrt")}
+    nat = ng.extract_natvars({"layers": [None, None, final]}, (2,))
+    rng = np.random.default_rng(1)
+    grads = [{k: torch.from_numpy(rng.standard_normal(v.shape)).to(dtype)
+              for k, v in nv.items() if k in ("q_mu", "q_S")} for nv in nat]
+    g_t = torch.zeros((), dtype=torch.float64)
+    values = set()
+    for step in range(tc.gamma_warmup + 3):
+        g = gamma_schedule(tc, step)
+        values.add(g)
+        g_t.fill_(g)
+        assert float(g_t) == g
+        a = ng.natgrad_update(nat, grads, g)
+        b = ng.natgrad_update(nat, grads, g_t)
+        for k in a[0]:
+            assert a[0][k].dtype == b[0][k].dtype == nat[0][k].dtype
+            assert torch.equal(a[0][k], b[0][k]), (step, k)
+    assert len(values) == tc.gamma_warmup + 1
+
+
+def test_graph_counts_its_launches_once_per_replay(monkeypatch):
+    """The real Graph with the CUDA calls replaced: the warm-up counts as
+    an eager call, the capture records into the graph's tally and counts
+    nothing, each replay adds the tally once."""
+    class CUDAGraph:
+        def __init__(self):
+            self.registered, self.replays = [], 0
+
+        def register_generator_state(self, gen):
+            self.registered.append(gen)
+
+        def replay(self):
+            self.replays += 1
+
+    def launches():
+        build.count_launch("chol_inv")
+        build.count_launch("epilogue", "epi")
+        build.count_launch("epilogue_bwd", "epi")
+        build.count_launch("epilogue_bwd", "epi")
+        return torch.ones(2)
+
+    monkeypatch.setattr(graphs, "capture_stream", lambda device: None)
+    monkeypatch.setattr(graphs, "_warm_up", lambda fn, stream, device: fn())
+    monkeypatch.setattr(graphs, "_capture", lambda graph, fn, stream: fn())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", CUDAGraph)
+    build.reset_launches()
+    gen = torch.Generator()
+    g = graphs.Graph(launches, device="cpu", generators=(gen,))
+    once = {"chol_inv": 1, "epilogue": 1, "epilogue_bwd": 2,
+            "epilogue:epi": 1, "epilogue_bwd:epi": 2}
+    assert g.launches == once
+    assert g._graph.registered == [gen]
+
+    def counted():
+        c = {k: v for k, v in build.launches().items() if v}
+        c.update(build.variant_launches())
+        return c
+
+    assert counted() == once
+    for n in range(2, 5):
+        assert torch.equal(g.replay(), torch.ones(2))
+        assert counted() == {k: n * v for k, v in once.items()}
+    assert g._graph.replays == 3
+    # a capture inside a capture tallies into the inner one only
+    with build.capturing() as outer:
+        with build.capturing() as inner:
+            build.count_launch("serve_cond", "infer")
+        build.count_launch("chol_inv")
+    assert inner == {"serve_cond": 1, "serve_cond:infer": 1}
+    assert outer == {"chol_inv": 1}
+    assert counted() == {k: 4 * v for k, v in once.items()}
+    build.reset_launches()
+
+
+def test_graph_cache_keys(fake_graphs):
+    """Same key, same graph (replayed); a ragged batch's key, a new graph;
+    the plain versions, a graph of their own."""
+    cache = graphs.GraphCache("cpu")
+    calls = []
+
+    def fn(rows):
+        return lambda: calls.append(rows) or torch.full((rows,), rows)
+
+    assert torch.equal(cache((8,), fn(8)), torch.full((8,), 8))
+    assert torch.equal(cache((8,), fn(8)), torch.full((8,), 8))
+    assert len(cache.graphs()) == 1 and fake_graphs[0].replays == 1
+    cache((3,), fn(3))
+    assert len(cache.graphs()) == 2 and len(fake_graphs) == 2
+    cache((8,), fn(8))
+    assert fake_graphs[0].replays == 2 and fake_graphs[1].replays == 0
+    with build.plain_versions():
+        cache((8,), fn(8))
+        cache((8,), fn(8))
+    assert len(cache.graphs()) == 3 and fake_graphs[2].replays == 1
+    assert calls == [8, 8, 3, 8, 8, 8]
+
+
+def test_graphed_scorer_equals_eager_scorer(fake_graphs):
+    """GraphedScore through score_table (the static input filled from the
+    pinned table by ``stage``) against make_scorer_fn's eager calls, one
+    seed per batch, bitwise; a ragged batch gets its own graph; a batch
+    not staged is copied in."""
+    config, params, _, X, Y = _model("joint", torch.float32)
+    fn = make_scorer_fn(params, config, 3, device="cpu")
+    g = GraphedScore(fn, D_X, 1, "cpu")
+    Xn, Yn = X.numpy(), Y.numpy()
+    batches = fixed_batches(N, 24)             # 24, 24, 16 kept of 24
+    batches[-1] = (48, 16, 16)                 # a ragged last batch
+
+    def run(call, stage):
+        return score_table(call, Xn, Yn, D_X, 1, batches,
+                           torch.device("cpu"), stage=stage)
+
+    for seed in (0, 7):
+        got = run(lambda i, xb, yb: g(xb, yb, seed + i), g.stage)
+        want = run(lambda i, xb, yb: fn(xb, yb, seed + i), None)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert len(fake_graphs) == 2
+    assert [f.replays for f in fake_graphs] == [3, 1]
+    xb, yb = X[:24], Y[:24]
+    for a, b in zip(g(xb, yb, 3), fn(xb, yb, 3)):
+        assert torch.equal(a, b)
+    assert fake_graphs[0].replays == 4
+
+
+class _HostWaits(TorchDispatchMode):
+    """Fails on an operation that reads a value to the host, picks a shape
+    from values, or copies from host memory: on the card, inside a
+    captured step, each would wait for the card or fail the capture."""
+
+    BAD = {"_local_scalar_dense", "item", "nonzero", "masked_select",
+           "unique", "_unique2", "lift_fresh", "lift_fresh_copy"}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.BAD:
+            raise AssertionError(f"{func} inside the step")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_step_body_waits_for_nothing(case):
+    """The captured step body, after one warm-up step (which makes the
+    constant tables and Adam's moments), runs no operation that makes the
+    host wait or copies from host memory. Under a dispatch mode a
+    composite backward formula takes its subclass-safe path (torch.prod's
+    reads a count of zeros to the host only outside one), so the capture
+    on the card checks those. Adam's update runs outside the check: on
+    the CPU it reads its step count to the host, on the card it is
+    capturable (its count on the device; the card tests capture it under
+    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    config, params, tc, X, Y = _model(case)
+    init, step, _, _ = make_trainer(config, tc)
+    state, gen = init(params), torch.Generator().manual_seed(0)
+    gamma = torch.full((), gamma_schedule(tc, 0), dtype=torch.float64)
+    loss = torch.zeros((), dtype=X.dtype)
+    train.write_step(step, state, X, Y, gen, gamma, loss)
+    adam_step = state.opt_state.step
+
+    def unchecked_adam_step():
+        with _disable_current_modes():
+            adam_step()
+
+    state.opt_state.step = unchecked_adam_step
+    with _HostWaits():
+        train.write_step(step, state, X, Y, gen, gamma, loss)
+    assert torch.isfinite(loss)
+
+
+def test_host_waits_mode_catches_a_sync():
+    with pytest.raises(AssertionError, match="local_scalar_dense"):
+        with _HostWaits():
+            float(torch.ones(3).sum())
+    with pytest.raises(AssertionError, match="lift_fresh"):
+        with _HostWaits():
+            torch.tensor(2.0)
+
+
+def test_adam_is_capturable_on_the_card_only(tmp_path):
+    """On the CPU Adam stays as it was (capturable off); a checkpoint whose
+    Adam was capturable (saved from the card) restores into a CPU
+    template with the template's flag, and resumes bitwise."""
+    config, params, tc, X, Y = _model("joint")
+    init, step, chunk, _ = make_trainer(config, tc)
+    state, gen = init(params), torch.Generator().manual_seed(0)
+    assert not state.opt_state.param_groups[0]["capturable"]
+    state, _ = chunk(state, X, Y, gen)
+    path = checkpoint.save_checkpoint(str(tmp_path), state.step, state, gen)
+    saved = torch.load(path, weights_only=True)
+    saved["state"]["opt_state"]["param_groups"][0]["capturable"] = True
+    torch.save(saved, path)
+    like = {"state": init(params), "generator": torch.Generator()}
+    back = checkpoint.restore_checkpoint(str(tmp_path), state.step, like)
+    assert not back["state"].opt_state.param_groups[0]["capturable"]
+    s1, l1 = chunk(state, X, Y, gen)
+    s2, l2 = chunk(back["state"], X, Y, back["generator"])
+    assert torch.equal(l1, l2)
+    for a, b in zip(_leaves(s1), _leaves(s2), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_fit_on_the_cpu_stays_eager(monkeypatch):
+    """fit on CPU tensors makes no graph."""
+    def refuse(*a, **k):
+        raise AssertionError("a graph on the CPU path")
+
+    monkeypatch.setattr(graphs, "Graph", refuse)
+    config, params, tc, X, Y = _model("joint")
+    tc = dataclasses.replace(tc, iterations=10)
+    _, state = train.fit(torch.Generator().manual_seed(0), config, params,
+                         X, Y, tc)
+    assert state.step == 10
+
+
+def test_dgp_suite_torch_entry_point():
+    """pyproject's console scripts name the port's suite runner beside its
+    train and serve entry points, and each resolves to its main."""
+    root = Path(__file__).resolve().parents[1]
+    scripts = tomllib.loads((root / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    assert scripts["dgp-suite-torch"] == (
+        "dgps_with_iwvi_torch.experiments.run_suite:main")
+    for name in ("dgp-train-torch", "dgp-serve-torch", "dgp-suite-torch"):
+        module, attr = scripts[name].split(":")
+        fn = getattr(importlib.import_module(module), attr)
+        assert callable(fn) and fn.__name__ == "main"
+        assert fn.__module__ == module
