@@ -144,12 +144,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    eagerly and through ``Scorer``, every output bitwise equal; launches
    exact per step and request in every turn; steps/s, points/s, the
    capture time, the peak memory of the first chunk and, with --profile,
-   the idle share of a replayed chunk.
+   the idle share of a replayed chunk; then ``evaluation.evaluate``'s
+   chunks (``GraphedEval``) on a table of 51,630 new rows of phase 6's
+   surrogate at S=100 in 4096-row chunks, on four routes: phase 6's
+   step-400 model on the default route (K4) and the K2 route, phase 9's
+   ``--no_white`` model and phase 8's multiclass model; eager chunks
+   against one replay per chunk in turns, every point's log-density and
+   mean and every metric bitwise, launches equal to the eager call's and
+   to the capture's tally per chunk; ``evaluate`` itself; phase 6's
+   step-200 model then replays the default route's graph (no new
+   capture) and equals its eager evaluation; points/s, the capture time
+   and the memory the cache holds.
 
-Since this slice ``fit`` and ``Scorer`` replay CUDA graphs on the card,
-so phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with
-their launch gates unchanged; phase 5 times ``step_fn`` eagerly and phase
-10's ``fit(mesh=)`` stays eager.
+``fit``, ``Scorer`` and ``evaluate`` replay CUDA graphs on the card, so
+phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with their
+launch gates unchanged; phase 5 times ``step_fn`` eagerly and phase 10's
+``fit(mesh=)`` and ``evaluate(mesh=)`` stay eager. Phase 7 also prints
+the card's busy share of a batch of ``ServingArtifact.score`` (the device
+time of one program call against the wall time per batch).
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
 above, by path; phase 10's by rank), then the card's name and power limit, then
@@ -2016,6 +2028,19 @@ def serve_phase(torch, card: str, tmp: str, harness: dict) -> dict:
         art_batch_ms = time_ms(torch, lambda: loaded._fn(xb, yb, seed_t), 5)
         art_noise_ms = time_ms(torch, lambda: artifact_noise(
             seed_t, cfg, HARNESS_SAMPLES, B_SERVE), 5)
+        # the card's busy share of a batch of ServingArtifact.score: the
+        # device time of one program call (calls queued behind a spin
+        # kernel) against the wall time per batch of scoring the table
+        art_device_ms = device_ms(torch, lambda: loaded._fn(xb, yb, seed_t),
+                                  5)
+    walls = []
+    for _ in range(3):  # the first a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded.score(*tab)
+        walls.append((time.perf_counter() - t0) * 1e3 / SERVE_TABLE_BATCHES)
+    art_wall_ms = min(walls[1:])
+    art_busy = art_device_ms / art_wall_ms
     del loaded
     _, counts_poly = _serve_counts(build, lambda: run(
         "--from_export", poly_path, "--input",
@@ -2051,13 +2076,18 @@ def serve_phase(torch, card: str, tmp: str, harness: dict) -> dict:
            "poly_vs_fixed": poly_err, "poly_rows": n_poly,
            "export_s": export_s, "artifact_batch_ms": art_batch_ms,
            "artifact_noise_ms": art_noise_ms,
+           "artifact_device_ms_per_batch": art_device_ms,
+           "artifact_wall_ms_per_batch": walls[1:],
+           "artifact_busy_share": art_busy,
            "launches": counts_live, "launches_test_split": counts_test,
            "launches_artifact": counts_art}
     print(f"serve CLI: {n_tab} rows at S={HARNESS_SAMPLES}, batch "
           f"{B_SERVE}: live (K4) {res_live['points_per_sec']:.0f} points/s "
           f"(--transport bfloat16 {res_bf16['points_per_sec']:.0f}), "
           f"artifact {res_art['points_per_sec']:.0f} ({art_batch_ms:.2f} "
-          f"ms per batch, its Philox draws {art_noise_ms:.2f}); artifact vs "
+          f"ms per batch, its Philox draws {art_noise_ms:.2f}; device "
+          f"{art_device_ms:.2f} of {art_wall_ms:.2f} ms wall per batch of "
+          f"ServingArtifact.score, busy share {art_busy:.3f}); artifact vs "
           f"plain "
           f"live path {max(art_err.values()):.3g} of max|value| (bitwise "
           f"{art_bitwise}); test mean log-density {ld_mean:.6f} vs harness "
@@ -2269,15 +2299,17 @@ OBS_F, OBS_F_CLASSES = 0.3, (0.2, -0.5, 1.0)
 
 
 def _restore(torch, tmp, ckpt):
-    """(config, params) of the latest checkpoint in `ckpt`, rebuilt from
-    its build_args.json as dgp-serve-torch does (one K1 launch: the
-    canonical form of the natgrad block)."""
-    from dgps_with_iwvi_torch.data import get_regression_data
+    """(config, params, data) of the latest checkpoint in `ckpt`, rebuilt
+    from its build_args.json on its family's data as dgp-serve-torch does
+    (one K1 launch: the canonical form of the natgrad block)."""
     from dgps_with_iwvi_torch.experiments import serve
+    from dgps_with_iwvi_torch.experiments.main import load_data
 
     args = serve.parse_args(["--dataset", "kin8nm", "--data_dir",
                              os.path.join(tmp, "data"), "--ckpt_dir", ckpt])
-    data = get_regression_data("kin8nm", 0, data_dir=args.data_dir)
+    likelihood, num_classes = serve._family(args)
+    data = load_data(likelihood, "kin8nm", 0, num_classes=num_classes,
+                     data_dir=args.data_dir)
     config, params, _ = serve._restore(args, data, torch.device("cuda"))
     return config, params, data
 
@@ -3561,7 +3593,187 @@ def _graph_serve_case(torch, serving, build, model, label, fields,
             "launches_per_replay": dict(captured[0].launches)}
 
 
-def graphs_phase(torch, card: str, model, profile: bool) -> dict:
+EVAL_TABLE_ROWS = 51_630  # year's test split: 12 chunks of 4096, 2478 left
+EVAL_TABLE_SEED = 1
+EVAL_SEED = 11
+# (label, phase's checkpoint directory in the run's tmp, DGPConfig fields
+# replaced): evaluation's four routes
+GRAPH_EVAL = [
+    ("default (K4)", "a", {}),
+    ("K2 route", "a", {"serve_pallas": False}),
+    ("--no_white", "breadth_no_white", {}),
+    ("multiclass", "family_multiclass", {}),
+]
+
+
+def surrogate_table(rows: int, seed: int):
+    """`rows` new points of phase 6's data, the kin8nm surrogate
+    (``data.datasets._synthetic_regression``): its random-feature function
+    and noise at inputs drawn from `seed`. The surrogate's own rows are
+    regenerated first and must equal it. Returns raw X [rows, 8], raw y
+    [rows] and the surrogate's own raw y (the multiclass loader bins by
+    its quantiles)."""
+    import hashlib
+
+    from dgps_with_iwvi_torch.data import datasets
+
+    n, d = datasets.UCI_REGISTRY["kin8nm"]
+    X0, Y0 = datasets._synthetic_regression("kin8nm", n, d)
+    rng = np.random.RandomState(int.from_bytes(
+        hashlib.sha256(b"kin8nm").digest()[:4], "little"))
+    X_own = rng.randn(n, d)
+    omega = rng.randn(d, 64) / np.sqrt(d)
+    b = rng.uniform(0, 2 * np.pi, 64)
+    w = rng.randn(64) / np.sqrt(64)
+
+    def draw(X, r):
+        f = np.cos(X @ omega + b) @ w
+        return f + (0.1 + 0.1 * (np.tanh(f) + 1.0)) * r.randn(len(f))
+
+    if not (np.array_equal(X_own, X0)
+            and np.array_equal(draw(X_own, rng), Y0[:, 0])):
+        fail("graphs, eval: the surrogate's generator is not the one "
+             "this table replays")
+    new = np.random.RandomState(seed)
+    X = new.randn(rows, d)
+    return X, draw(X, new), Y0[:, 0]
+
+
+def _eval_inputs(torch, config, data, table) -> tuple:
+    """(X, Y) device tensors of the raw table in the model's units: X
+    standardized by the train split; Y standardized (regression) or the
+    multiclass loader's quantile bins of the surrogate's y."""
+    X, y, y_own = table
+    Xt = ((X - data.X_mean) / data.X_std).astype(np.float32)
+    if config.likelihood == "multiclass":
+        C = config.layers[-1].d_out
+        edges = np.quantile(y_own, np.linspace(0, 1, C + 1)[1:-1])
+        Yt = np.searchsorted(edges, y).astype(np.float32)[:, None]
+    else:
+        Yt = ((y[:, None] - data.Y_mean) / data.Y_std).astype(np.float32)
+    return torch.from_numpy(Xt).cuda(), torch.from_numpy(Yt).cuda()
+
+
+def _pool_bytes(torch, graph):
+    """Bytes of the segments of `graph`'s private memory pool (a
+    ``utils.graphs.Graph``), or None where the snapshot names no pool."""
+    pool = tuple(graph._graph.pool())
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id") or ()) == pool]
+    return sum(seg["total_size"] for seg in segs) if segs else None
+
+
+def _same_eval(a, b) -> bool:
+    """Points (log-density, mean) bitwise and metrics equal (NaN = NaN)."""
+    (pa, ma), (pb, mb) = a, b
+    return (all(np.array_equal(x, y) for x, y in zip(pa, pb))
+            and ma.keys() == mb.keys()
+            and all(ma[k] == mb[k] or (math.isnan(ma[k])
+                                       and math.isnan(mb[k])) for k in ma))
+
+
+def _graph_eval_case(torch, metrics, build, label, config, params, X, Y,
+                     y_std, other) -> dict:
+    """One route of evaluation in phase 12: ``evaluate``'s chunks eagerly
+    (``metrics._points`` with ``graphed=False``, the CPU and mesh path)
+    against one replay of the cached ``GraphedEval`` per chunk, the same
+    table and seed, in turns: every point's log-density and mean and every
+    metric bitwise, launches equal to the eager call's and to the
+    capture's tally per chunk, no new capture after the first call. Then
+    ``evaluate`` itself, and, with `other` parameters, a call that must
+    replay the same graph and equal eager evaluation of them."""
+    S, bs, n = HARNESS_SAMPLES, EVAL_BATCH, X.shape[0]
+    chunks = -(-n // bs)
+    Yn = Y.cpu().numpy()
+    lik = config.likelihood
+
+    def run(graphed, p=params):
+        points = metrics._points(p, config, X, Y, EVAL_SEED, S, bs, None,
+                                 graphed)
+        return points, metrics._metrics(*points, Yn, y_std, lik)
+
+    def timed(graphed, p=params):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = run(graphed, p)
+        wall = time.perf_counter() - t0
+        return out, wall, {k: v for k, v in _path_counts(build).items()
+                           if v}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    eager0, eager_s, eager_counts = timed(False)
+    graph0, graph_s, graph_counts = timed(True)
+    program = metrics.eval_programs()[-1]
+    captured = program.graphs.graphs()
+    if len(captured) != 1:
+        fail(f"graphs, eval {label}: {len(captured)} graphs, want 1")
+    graph = captured[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_delta = torch.cuda.memory_reserved() - reserved0
+    static = sum(t.numel() * t.element_size() for t in
+                 metrics._leaves(program.params) + [program.x, program.y])
+    per_chunk = dict(graph.launches)
+    if graph_counts != eager_counts or eager_counts != {
+            k: v * chunks for k, v in per_chunk.items() if ":" in k
+            or k == "chol_inv"}:
+        fail(f"graphs, eval {label}: launches {graph_counts} graphed, "
+             f"{eager_counts} eager, per replay {per_chunk} x {chunks}")
+    if not _same_eval(eager0, graph0):
+        fail(f"graphs, eval {label}: the first graphed call differs from "
+             "the eager one")
+    turns, outs = [], {}
+    for i, side in enumerate(GRAPH_TURNS):
+        out, wall, counts = timed(side == "graph")
+        if counts != eager_counts:
+            fail(f"graphs, eval {label} ({side}): launches {counts}, want "
+                 f"{eager_counts}")
+        outs[(side, i // 2)] = out
+        turns.append({"side": side, "points_per_s": n / wall,
+                      "launches": counts})
+    for r in range(2):
+        if not (_same_eval(outs[("eager", r)], outs[("graph", r)])
+                and _same_eval(outs[("eager", r)], eager0)):
+            fail(f"graphs, eval {label}: replayed points or metrics differ "
+                 "from the eager chunks'")
+    public = metrics.evaluate(params, config, X, Y, EVAL_SEED, y_std=y_std,
+                              num_samples=S, likelihood=lik)
+    if not _same_eval((eager0[0], public), eager0):
+        fail(f"graphs, eval {label}: evaluate's metrics {public} differ "
+             f"from the eager chunks' {eager0[1]}")
+    rec = {"rows": n, "chunks": chunks, "batch": bs, "samples": S,
+           "turns": turns,
+           "eager_points_per_s": [t["points_per_s"] for t in turns
+                                  if t["side"] == "eager"],
+           "graph_points_per_s": [t["points_per_s"] for t in turns
+                                  if t["side"] == "graph"],
+           "first_call_s": {"eager": eager_s, "graph": graph_s},
+           "capture_s": graph.capture_s,
+           "pool_bytes": _pool_bytes(torch, graph),
+           "static_bytes": static,
+           "reserved_after_first_calls_bytes": reserved_delta,
+           "launches_per_replay": per_chunk,
+           "metrics": eager0[1], "bitwise_equal": True}
+    if other is not None:
+        got, _, counts = timed(True, other)
+        want, _, _ = timed(False, other)
+        if metrics.eval_programs()[-1] is not program or \
+                program.graphs.graphs() != [graph]:
+            fail(f"graphs, eval {label}: the second parameters made a new "
+                 "program or graph")
+        if counts != eager_counts or not _same_eval(got, want) or \
+                _same_eval(got, eager0):
+            fail(f"graphs, eval {label}: the second parameters' replay "
+                 f"({counts}) is not the eager evaluation of them")
+        rec["other_params"] = {"metrics": got[1], "bitwise_equal": True,
+                               "new_capture": False}
+    return rec
+
+
+def graphs_phase(torch, card: str, model, profile: bool, tmp: str) -> dict:
     """12. graphs: eager against graphed steps and requests in turns
     (eager, graph, eager, graph) within this call."""
     from dgps_with_iwvi_torch import serving
@@ -3597,6 +3809,68 @@ def graphs_phase(torch, card: str, model, profile: bool) -> dict:
                                         r["graph_points_per_s"])
               + f" points/s; capture {r['capture_s']:.2f} s; bitwise "
               f"equal; on {card}")
+    out["eval"] = eval_graphs(torch, card, tmp)
+    return out
+
+
+def eval_graphs(torch, card: str, tmp: str) -> dict:
+    """Phase 12's evaluation cases: phase 6's model at step 400 on the
+    default route (K4) and the K2 route, phase 9's --no_white model and
+    phase 8's multiclass model, each scoring a table of EVAL_TABLE_ROWS
+    new rows of the kin8nm surrogate at S=100 in 4096-row chunks; the
+    default route then takes phase 6's step-200 model as the second
+    parameters."""
+    import dataclasses
+
+    from dgps_with_iwvi_torch.evaluation import metrics
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    table = surrogate_table(EVAL_TABLE_ROWS, EVAL_TABLE_SEED)
+    step200 = os.path.join(tmp, "eval_step200")
+    os.makedirs(step200, exist_ok=True)
+    for name in (f"step_{HARNESS_RESUME_AT}.pt", "build_args.json"):
+        shutil.copy(os.path.join(tmp, "a", name), step200)
+    out = {}
+    for label, ckpt, fields in GRAPH_EVAL:
+        config, params, data = _restore(torch, tmp, os.path.join(tmp, ckpt))
+        config = dataclasses.replace(config, **fields)
+        X, Y = _eval_inputs(torch, config, data, table)
+        other = (_restore(torch, tmp, step200)[1] if label == "default (K4)"
+                 else None)
+        out[label] = r = _graph_eval_case(
+            torch, metrics, build, label, config, params, X, Y,
+            data.Y_std, other)
+        pool = ("not measured" if r["pool_bytes"] is None
+                else f"{r['pool_bytes'] / 2 ** 30:.3f} GiB")
+        print(f"graphs, eval {label}: {r['rows']} rows, {r['chunks']} "
+              "chunks at S=100: eager "
+              + ", ".join(f"{v:.0f}" for v in r["eager_points_per_s"])
+              + " / graph " + ", ".join(f"{v:.0f}" for v in
+                                        r["graph_points_per_s"])
+              + f" points/s; first call {r['first_call_s']['eager']:.3f} "
+              f"/ {r['first_call_s']['graph']:.3f} s (eager / graph, "
+              f"capture {r['capture_s']:.3f} s); pool {pool}, static "
+              f"{r['static_bytes'] / 2 ** 20:.1f} MiB, reserved after the "
+              f"first calls "
+              f"{r['reserved_after_first_calls_bytes'] / 2 ** 30:.3f} GiB; "
+              f"per replay {r['launches_per_replay']}; bitwise "
+              f"equal{'; step-200 params replayed bitwise' if other else ''}"
+              f"; on {card}")
+    programs = metrics.eval_programs()
+    pools = [_pool_bytes(torch, g) for p in programs
+             for g in p.graphs.graphs()]
+    out["cache"] = {
+        "programs": len(programs), "limit": metrics.EVAL_GRAPHS,
+        "pool_bytes": (None if None in pools else sum(pools)),
+        "static_bytes": sum(t.numel() * t.element_size() for p in programs
+                            for t in metrics._leaves(p.params)
+                            + [p.x, p.y])}
+    c = out["cache"]
+    print(f"graphs, eval cache: {c['programs']} programs (limit "
+          f"{c['limit']}), pools "
+          + ("not measured" if c["pool_bytes"] is None
+             else f"{c['pool_bytes'] / 2 ** 30:.3f} GiB")
+          + f", static {c['static_bytes'] / 2 ** 20:.1f} MiB; on {card}")
     return out
 
 
@@ -3879,16 +4153,16 @@ def main() -> int:
         rec["parallel"] = parallel_phase(torch, card, tmp)
         rec["parallel"]["phase_s"] = time.perf_counter() - t0
         print(f"parallel: phase 10 took {rec['parallel']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["flops"] = flops_phase(torch, card, rec)
+        rec["flops"]["phase_s"] = time.perf_counter() - t0
+        print(f"flops: phase 11 took {rec['flops']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["graphs"] = graphs_phase(torch, card, model, opts.profile, tmp)
+        rec["graphs"]["phase_s"] = time.perf_counter() - t0
+        print(f"graphs: phase 12 took {rec['graphs']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    t0 = time.perf_counter()
-    rec["flops"] = flops_phase(torch, card, rec)
-    rec["flops"]["phase_s"] = time.perf_counter() - t0
-    print(f"flops: phase 11 took {rec['flops']['phase_s']:.1f} s")
-    t0 = time.perf_counter()
-    rec["graphs"] = graphs_phase(torch, card, model, opts.profile)
-    rec["graphs"]["phase_s"] = time.perf_counter() - t0
-    print(f"graphs: phase 12 took {rec['graphs']['phase_s']:.1f} s")
     if opts.profile:
         # the profiler slows the host; against the unprofiled serve time
         wall = rec["slice"]["serve_s"] * 1e3 / REQUESTS
@@ -3924,13 +4198,18 @@ def main() -> int:
              "demo_multitask":
                  rec["flops"]["demos"]["multitask"]["launches"],
              **{f"graphs_{kind}_{label}_{t['side']}{i // 2}": t["launches"]
-                for kind in ("train", "serve")
+                for kind in ("train", "serve", "eval")
                 for label, r in rec["graphs"][kind].items()
+                if "turns" in r
                 for i, t in enumerate(r["turns"])}}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        k["launches_per_eval_replay"] = {
+            label: r["launches_per_replay"].get(k["name"], 0)
+            for label, r in rec["graphs"]["eval"].items()
+            if "launches_per_replay" in r}
     rec["kernels"] = [k1, *k2, *k3, *k45]
     s = rec["slice"]
     print(f"serve, K2 route: {s['points_per_s']:.0f} points/s "

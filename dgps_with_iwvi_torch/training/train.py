@@ -287,12 +287,26 @@ def write_step(step_fn, state: TrainState, X, Y, generator, gamma, loss):
     read from the 0-d float64 tensor `gamma`, the new natvars written into
     ``state.natvars``' own tensors (Adam already steps ``state.rest`` in
     place) and the loss into `loss`. The step that ``fit``'s CUDA graph
-    captures: a replay reads and writes the same tensors."""
+    captures: a replay reads and writes the same tensors.
+
+    A step run for real (the graph's warm-up) gives a natvar tensor the
+    strides of the step's new value where they differ (``set_``: the
+    same tensor object, the new value's storage), so that the captured
+    step reads its natvars in the layout an eager step reads them: cuBLAS
+    picks its kernel by its operands' strides, and the initial natvars'
+    layout (``natgrad.extract_natvars``) is not the update's. Inside a
+    capture the values are copied into the tensors as they are."""
     new, value = step_fn(state, X, Y, generator, gamma=gamma)
+    capturing = X.is_cuda and torch.cuda.is_current_stream_capturing()
     for old_nv, new_nv in zip(state.natvars, new.natvars):
         for k, v in new_nv.items():
-            if v is not old_nv[k]:
-                old_nv[k].copy_(v)
+            old = old_nv[k]
+            if v is old:
+                continue
+            if not capturing and old.stride() != v.stride():
+                old.set_(v)
+            else:
+                old.copy_(v)
     loss.copy_(value)
 
 

@@ -664,15 +664,11 @@ POLICIES = {
 def test_every_policy_replays_its_eager_steps(gen, policy):
     """A small LGG (d_x=4, M=64, K=8, B=256) under each policy: two
     chunks of five steps, the graphed chunk against the eager one from one
-    state and generator state, the launch counts equal. At M=64 under
-    the natgrad policies cuBLAS picks another kernel for natgrad's
-    matrix-vector products while the step is captured (the same inputs
-    give another rounding; the eager steps repeat bitwise, and the
-    flagship at M=128 replays bitwise, tests above), which moved q_mu by
-    one float32 unit at the first replay, and ten Adam steps carry that
-    into every leaf; so this test holds chip_smoke.py's step gates: each
-    loss within 1e-4 relative, each state leaf within 2e-2 of its largest
-    eager value (a first run at 1e-4 read gaps up to 4e-3 of it)."""
+    state and generator state, the launch counts equal, losses, every
+    state leaf and the generator bitwise. The graphed step reads its
+    natvars in the layout the eager step reads them (``write_step``): in
+    the initial natvars' layout natgrad's [1,64,64] x [1,64,1] products
+    took another cuBLAS kernel and rounded otherwise."""
     from dgps_with_iwvi_torch.training import train
 
     flags, fields = POLICIES[policy]
@@ -701,10 +697,10 @@ def test_every_policy_replays_its_eager_steps(gen, policy):
         build.reset_launches()
         s_g, l_g = graphed(s_g, Xc, Yc, g_g)
         assert _counts() == eager
-        torch.testing.assert_close(l_g, l_e, rtol=1e-4, atol=0)
+        assert torch.equal(l_e, l_g)
     for a, b in zip(_state_leaves(s_e), _state_leaves(s_g), strict=True):
-        torch.testing.assert_close(b, a, rtol=0,
-                                   atol=2e-2 * float(a.abs().max()))
+        assert torch.equal(a, b)
+    assert torch.equal(g_e.get_state(), g_g.get_state())
 
 
 def test_capture_makes_no_host_sync(gen):
@@ -792,3 +788,83 @@ def test_resumed_graphed_fit_equals_straight_run(gen, tmp_path):
                     strict=True):
         assert torch.equal(a, b)
     assert torch.equal(gen_s.get_state(), back["generator"].get_state())
+
+
+# ---- evaluation.evaluate: one graph replay per chunk (GraphedEval)
+
+def _fresh_eval_cache(monkeypatch):
+    from collections import OrderedDict
+
+    from dgps_with_iwvi_torch.evaluation import metrics
+
+    monkeypatch.setattr(metrics, "_programs", OrderedDict())
+    return metrics
+
+
+@pytest.mark.parametrize("route", ["default", "k2"])
+def test_replayed_evaluation_equals_eager_evaluation(gen, monkeypatch,
+                                                     route):
+    """The flagship's test set of 7372 rows at S=100 in 4096-row chunks
+    (one full chunk, then a ragged tail of 3276 rows): the warm-up chunk,
+    the capture and the replay run under
+    ``torch.cuda.set_sync_debug_mode("error")``, then every point's
+    log-density and mean equal the eager chunks' bitwise, launches
+    equal."""
+    metrics = _fresh_eval_cache(monkeypatch)
+    fields = {"default": {}, "k2": {"serve_pallas": False}}[route]
+    config, params, _, X, Y = _flagship(**fields)
+    bs, n = 4096, X.shape[0]
+    build.reset_launches()
+    want = metrics._points(params, config, X, Y, 5, 100, bs, None, False)
+    eager = _counts()
+    build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            program = metrics.graphed_eval(params, config, 100, X, Y, bs)
+            outs = []
+            for start in range(0, n, bs):
+                ld, mean = program(X[start:start + bs], Y[start:start + bs],
+                                   5, start)
+                keep = min(bs, n - start)
+                outs.append(torch.cat([ld[:keep, None], mean[:keep]], 1))
+            out = torch.cat(outs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _counts() == eager
+    out = out.cpu().numpy()
+    np.testing.assert_array_equal(out[:, 0], want[0])
+    np.testing.assert_array_equal(out[:, 1:], want[1])
+    assert len(program.graphs.graphs()) == 1
+
+
+def test_second_evaluation_with_new_params_replays(gen, monkeypatch):
+    """evaluate twice with the same configuration and other parameter
+    tensors (the suite's next run): the second call replays the graph of
+    the first, makes no new one, and equals eager evaluation of the
+    second parameters bitwise, metrics and points."""
+    metrics = _fresh_eval_cache(monkeypatch)
+    config, params, _, X, Y = _flagship()
+    other = {"layers": [dict(lp) for lp in params["layers"]],
+             "likelihood": dict(params["likelihood"])}
+    other["layers"][2]["q_mu"] = params["layers"][2]["q_mu"] + 0.3
+    kw = dict(y_std=np.array([2.0]), num_samples=100)
+    first = metrics.evaluate(params, config, X, Y, 9, **kw)
+    (program,) = metrics.eval_programs()
+    (graph,) = program.graphs.graphs()
+    build.reset_launches()
+    got = metrics.evaluate(other, config, X, Y, 9, **kw)
+    replayed = _counts()
+    assert metrics.eval_programs() == [program]
+    assert program.graphs.graphs() == [graph]
+    assert replayed == {k: 2 * v for k, v in graph.launches.items()}
+    want_points = metrics._points(other, config, X, Y, 9, 100, 4096, None,
+                                  False)
+    got_points = metrics._points(other, config, X, Y, 9, 100, 4096, None,
+                                 True)
+    for a, b in zip(got_points, want_points, strict=True):
+        np.testing.assert_array_equal(a, b)
+    want = metrics._metrics(*want_points, Y.cpu().numpy(), kw["y_std"],
+                            "gaussian")
+    assert got == want and got != first

@@ -149,6 +149,26 @@ def test_graphed_chunk_equals_eager_chunk(fake_graphs, case):
     assert fake_graphs[0].generators == (g_g,)
 
 
+@pytest.mark.parametrize("case", ["joint", "natgrad_all", "alternating",
+                                  "q_diag", "no_white"])
+def test_graphed_natvars_take_the_eager_layout(fake_graphs, case):
+    """After the graph's warm-up step the natvars have the strides an
+    eager step gives them (not the initial natvars'), so that the captured
+    step's natgrad products read operands in the eager layout: on the card
+    cuBLAS picks its kernel by the operands' strides."""
+    config, params, tc, X, Y = _model(case)
+    init, step, chunk, _ = make_trainer(config, tc)
+    s_e, g_e = init(params), torch.Generator().manual_seed(5)
+    s_g, g_g = init(params), torch.Generator().manual_seed(5)
+    graphed = train.graphed_chunk_fn(step, tc, s_g, X, Y, g_g)
+    s_e, _ = chunk(s_e, X, Y, g_e)
+    s_g, _ = graphed(s_g, X, Y, g_g)
+    eager, graph = train._leaves(s_e.natvars), train._leaves(s_g.natvars)
+    assert [t.stride() for t in graph] == [t.stride() for t in eager]
+    for a, b in zip(eager, graph, strict=True):
+        assert torch.equal(a, b)
+
+
 def test_graphed_chunk_refuses_another_state(fake_graphs):
     config, params, tc, X, Y = _model("joint")
     init, step, _, _ = make_trainer(config, tc)
@@ -395,3 +415,189 @@ def test_dgp_suite_torch_entry_point():
         fn = getattr(importlib.import_module(module), attr)
         assert callable(fn) and fn.__name__ == "main"
         assert fn.__module__ == module
+
+
+# ---- evaluation.evaluate: one graph replay per chunk (GraphedEval)
+
+N_EVAL, BS_EVAL, S_EVAL = 40, 16, 5   # three chunks, the last of 8 rows
+EVAL_CASES = {"LGG": "joint", "no_white": "no_white",
+              "multiclass": "multiclass_matern"}
+
+
+@pytest.fixture
+def eval_cache(monkeypatch):
+    """An empty evaluation cache for the test, the module's own put back
+    after it."""
+    from collections import OrderedDict
+
+    from dgps_with_iwvi_torch.evaluation import metrics
+
+    monkeypatch.setattr(metrics, "_programs", OrderedDict())
+    return metrics
+
+
+def _eval_model(case: str):
+    """(config, params at a random q(u), X, Y, likelihood) in float64 for
+    one of CASES; the test rows are the last N_EVAL of the data."""
+    config, params, _, X, Y = _model(case)
+    rng = np.random.default_rng(3)
+    for lp in params["layers"]:
+        if "q_mu" in lp:
+            lp["q_mu"] = lp["q_mu"] + torch.from_numpy(
+                0.5 * rng.standard_normal(lp["q_mu"].shape))
+    return config, params, X[-N_EVAL:], Y[-N_EVAL:], config.likelihood
+
+
+def _tree_copy(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_copy(v, dtype) for v in tree)
+    return tree.to(dtype, copy=True)
+
+
+def _with_new_q_mu(params, scale: float, dtype=torch.float64):
+    """The same tree with new tensors throughout (in `dtype`) and q_mu
+    moved."""
+    out = _tree_copy(params, dtype)
+    for lp in out["layers"]:
+        if "q_mu" in lp:
+            lp["q_mu"] += scale
+    return out
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_graphed_evaluate_equals_eager_evaluate(fake_graphs, eval_cache,
+                                                monkeypatch, case):
+    """evaluate through GraphedEval (the first chunk the warm-up, then two
+    replays, the last a ragged tail of 8 zero-padded rows) against the
+    eager chunks: every point's log-density and mean and every metric
+    bitwise, in float64."""
+    metrics = eval_cache
+    config, params, X, Y, lik = _eval_model(EVAL_CASES[case])
+    kw = dict(y_std=np.array([1.5]), num_samples=S_EVAL,
+              batch_size=BS_EVAL, likelihood=lik, device="cpu")
+    want = metrics._points(params, config, X, Y, 7, S_EVAL, BS_EVAL, None,
+                           False)
+    want_metrics = metrics.evaluate(params, config, X, Y, 7, **kw)
+    assert not fake_graphs
+    got = metrics._points(params, config, X, Y, 7, S_EVAL, BS_EVAL, None,
+                          True)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(metrics, "_replays", lambda device, mesh: True)
+    got_metrics = metrics.evaluate(params, config, X, Y, 7, **kw)
+    assert set(got_metrics) == set(want_metrics)
+    np.testing.assert_equal(got_metrics, want_metrics)   # NaN == NaN
+    assert len(fake_graphs) == 1 and fake_graphs[0].replays == 5
+    assert len(metrics.eval_programs()) == 1
+
+
+def test_second_call_copies_its_params_into_the_graph(fake_graphs,
+                                                      eval_cache):
+    """The stale-address trap: a graph reads the tensors it captured, so a
+    second call with other parameter tensors (another run of the suite)
+    must copy them into the graph's own. One program and one graph serve
+    both calls; the second equals eager on the second parameters."""
+    metrics = eval_cache
+    config, params, X, Y, _ = _eval_model("joint")
+    other = _with_new_q_mu(params, 0.25)
+    first = metrics._points(params, config, X, Y, 1, S_EVAL, BS_EVAL, None,
+                            True)
+    got = metrics._points(other, config, X, Y, 1, S_EVAL, BS_EVAL, None,
+                          True)
+    want = metrics._points(other, config, X, Y, 1, S_EVAL, BS_EVAL, None,
+                           False)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(first[0], got[0])
+    (program,) = metrics.eval_programs()
+    assert len(fake_graphs) == 1 and fake_graphs[0].replays == 5
+    assert len(program.graphs.graphs()) == 1
+    mine = metrics._leaves(program.params)
+    assert not {id(t) for t in mine} & {
+        id(t) for t in metrics._leaves(params) + metrics._leaves(other)}
+    for a, b in zip(mine, metrics._leaves(other), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_eval_cache_keys_and_bound(fake_graphs, eval_cache):
+    """A program per (config, S, chunk rows, dtypes, parameter shapes):
+    another S or chunk size, a new program; past EVAL_GRAPHS the least
+    recently used is dropped and a later call with its key captures
+    anew."""
+    metrics = eval_cache
+    config, params, X, Y, _ = _eval_model("joint")
+
+    def run(S, bs=BS_EVAL, x=X, y=Y, p=params):
+        return metrics._points(p, config, x, y, 0, S, bs, None, True)
+
+    run(1)
+    run(1, bs=8)
+    run(1, x=X.float(), y=Y.float(),        # float32: another key
+        p=_with_new_q_mu(params, 0.0, torch.float32))
+    assert len(metrics.eval_programs()) == 3 and len(fake_graphs) == 3
+    run(1)                                      # most recent again
+    assert len(fake_graphs) == 3
+    for S in range(2, 2 + metrics.EVAL_GRAPHS):
+        run(S)
+    assert len(metrics.eval_programs()) == metrics.EVAL_GRAPHS
+    run(1, bs=8)                                # was dropped: a new one
+    assert len(fake_graphs) == 4 + metrics.EVAL_GRAPHS
+
+
+def test_cpu_and_mesh_evaluate_never_capture(monkeypatch, eval_cache,
+                                             tmp_path):
+    """evaluate on the CPU and under a mesh (a gloo world of one rank,
+    made and destroyed here) makes no graph; only an unsharded call on the
+    card replays."""
+    import torch.distributed as dist
+
+    from dgps_with_iwvi_torch.parallel import make_mesh
+
+    metrics = eval_cache
+
+    def refuse(*a, **k):
+        raise AssertionError("a graph on an eager path")
+
+    monkeypatch.setattr(graphs, "Graph", refuse)
+    config, params, X, Y, _ = _eval_model("joint")
+    kw = dict(y_std=np.ones(1), num_samples=S_EVAL, batch_size=BS_EVAL,
+              device="cpu")
+    plain = metrics.evaluate(params, config, X, Y, 2, **kw)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cpu")
+        sharded = metrics.evaluate(params, config, X, Y, 2, mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert not metrics.eval_programs()
+    np.testing.assert_allclose(sharded["test_loglik"], plain["test_loglik"],
+                               rtol=1e-12)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert metrics._replays(cuda, None)
+    assert not metrics._replays(cuda, mesh)
+    assert not metrics._replays(cpu, None)
+
+
+# every prediction route and family of CASES (the training-only policies
+# predict as "joint" does)
+EVAL_BODY_CASES = ["joint", "use_pallas", "multiscale_priors", "no_white",
+                   "q_diag", "multiclass_matern", "softmax", "ordinal",
+                   "bernoulli", "student_t"]
+
+
+@pytest.mark.parametrize("case", EVAL_BODY_CASES)
+def test_eval_body_waits_for_nothing(fake_graphs, eval_cache, case):
+    """The captured evaluation chunk, after the warm-up chunk (which makes
+    the constant tables), runs no operation that makes the host wait or
+    copies from host memory."""
+    metrics = eval_cache
+    config, params, X, Y, _ = _eval_model(case)
+    metrics._points(params, config, X, Y, 0, S_EVAL, BS_EVAL, None, True)
+    (program,) = metrics.eval_programs()
+    with torch.no_grad(), _HostWaits():
+        ld, mean = program._body()
+    assert bool(torch.isfinite(ld).all()) and bool(
+        torch.isfinite(mean).all())
