@@ -155,6 +155,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    step-200 model then replays the default route's graph (no new
    capture) and equals its eager evaluation; points/s, the capture time
    and the memory the cache holds.
+13. quality gate: ``experiments.quality_gate.main --quick`` (500 steps,
+   the reference's quick tolerances 0.2 and 0.5) on LGG-kin8nm natgrad
+   and GG-energy ADAM-ONLY: the port's shipped defaults against its
+   all-``highest`` setting at two seeds, trained through ``fit`` (graphed)
+   and measured at ``highest``. One line per configuration (verdict, both
+   gaps, seconds, steps/s); a FAIL or a non-finite loss fails the run.
+   Launches counted per run: a candidate run launches K1 twice per step
+   (once with Adam alone), K2 'epi' and K3 'epi' once per GP layer per
+   step, and K1 once per measured bound (8) and per test chunk, and once
+   for natgrad's canonical q(u); an all-``highest`` run the same K1 and no
+   K2 or K3 (kernels line paths ``gate_candidate`` and ``gate_highest``).
+   The year configuration is left out: its k-means++ initialization
+   alone takes minutes on the host per run.
 
 ``fit``, ``Scorer`` and ``evaluate`` replay CUDA graphs on the card, so
 phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with their
@@ -3874,6 +3887,81 @@ def eval_graphs(torch, card: str, tmp: str) -> dict:
     return out
 
 
+# phase 13: the configurations of the quick gate, and its evaluation chunk
+GATE_PHASE_CONFIGS = ("LGG-kin8nm natgrad", "GG-energy ADAM-ONLY")
+
+
+def _gate_want(gc, steps: int, n_test: int, highest: bool) -> dict:
+    """Launches of one gate run: the training's (K1 for the Kuu prefactor
+    and, with natgrad, the natgrad step, plus once for the trained q(u)'s
+    canonical form; K2/K3 'epi' per GP layer at the ``default`` class
+    only) and the measurement's (K1 per bound and per test chunk)."""
+    _, _, conf, _, _, natgrad = gc
+    ng = natgrad != "none"
+    want = {"chol_inv": (1 + ng) * steps + ng + 8 + -(-n_test // EVAL_BATCH)}
+    if not highest:
+        layers = conf.count("G")
+        want["epilogue:epi"] = want["epilogue_bwd:epi"] = layers * steps
+    return want
+
+
+def gate_phase(torch, card: str, tmp: str) -> dict:
+    """13. quality gate: the quick gate on GATE_PHASE_CONFIGS, launches
+    counted per run and per side."""
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.experiments import quality_gate as qg
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    runs = []
+    run_setting = qg.run_setting
+
+    def counted(*gc, **kw):
+        build.reset_launches()
+        out = run_setting(*gc, **kw)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        highest = kw["var_precision"] == "highest"
+        n_test = get_regression_data(gc[1], 0).X_test.shape[0]
+        want = _gate_want(gc, kw["iterations"], n_test, highest)
+        if counts != want:
+            fail(f"gate: {gc[0]} ({'highest' if highest else 'candidate'}, "
+                 f"seed {kw.get('seed', 0)}): launches {counts}, want "
+                 f"{want}")
+        runs.append({"config": gc[0], "highest": highest,
+                     "seed": kw.get("seed", 0), "launches": counts,
+                     "steps_per_s": out["steps_per_s"],
+                     "train_s": out["train_s"], "finite": out["finite"]})
+        return out
+
+    qg.run_setting = counted
+    try:
+        verdict = qg.main(["--quick", "--configs", ",".join(
+            GATE_PHASE_CONFIGS), "--out", os.path.join(tmp, "gate")])
+    finally:
+        qg.run_setting = run_setting
+    sides = {"gate_candidate": {}, "gate_highest": {}}
+    for r in runs:
+        side = sides["gate_highest" if r["highest"] else "gate_candidate"]
+        for k, v in r["launches"].items():
+            side[k] = side.get(k, 0) + v
+    for row in verdict["rows"]:
+        rates = [r["steps_per_s"] for r in runs
+                 if r["config"] == row["config"]]
+        print(f"gate: {row['config']}: {'PASS' if row['ok'] else 'FAIL'} "
+              f"dELBO rel {row['d_elbo_rel']:.3e} (tol "
+              f"{row['tol_elbo_rel']:.3e}), dNLL {row['d_nll']:.4f} (tol "
+              f"{row['tol_nll']:.4f}), {row['seconds']:.1f} s, steps/s "
+              + ", ".join(f"{v:.1f}" for v in rates)
+              + f" (ref, ref seed 1, cand; {verdict['iterations']} steps, "
+              f"graphed, capture included); finite {row['finite']}; on "
+              f"{card}")
+    if not verdict["pass"]:
+        fail("gate: FAIL on "
+             + ", ".join(r["config"] for r in verdict["rows"] if not r["ok"]))
+    if not verdict["backend"].startswith(torch.cuda.get_device_name(0)):
+        fail(f"gate: measured on {verdict['backend']!r}, not the card")
+    return {"verdict": verdict, "runs": runs, "launches": sides}
+
+
 def _parent_libs(hopper, build, parent: str) -> dict:
     """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
@@ -4161,6 +4249,10 @@ def main() -> int:
         rec["graphs"] = graphs_phase(torch, card, model, opts.profile, tmp)
         rec["graphs"]["phase_s"] = time.perf_counter() - t0
         print(f"graphs: phase 12 took {rec['graphs']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["gate"] = gate_phase(torch, card, tmp)
+        rec["gate"]["phase_s"] = time.perf_counter() - t0
+        print(f"gate: phase 13 took {rec['gate']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -4201,7 +4293,8 @@ def main() -> int:
                 for kind in ("train", "serve", "eval")
                 for label, r in rec["graphs"][kind].items()
                 if "turns" in r
-                for i, t in enumerate(r["turns"])}}
+                for i, t in enumerate(r["turns"])},
+             **rec["gate"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -4231,6 +4324,7 @@ def main() -> int:
     print("parallel: " + json.dumps(rec["parallel"]))
     print("flops: " + json.dumps(rec["flops"]))
     print("graphs: " + json.dumps(rec["graphs"]))
+    print("gate: " + json.dumps(rec["gate"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

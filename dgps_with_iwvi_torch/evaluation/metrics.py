@@ -165,6 +165,12 @@ def eval_programs() -> list:
     return list(_programs.values())
 
 
+def drop_programs() -> None:
+    """Empty the cache: the next ``evaluate`` captures anew, under the
+    module switches then in force (a graph bakes those of its capture)."""
+    _programs.clear()
+
+
 def _piece_eval(params, config, xb, yb, seed: int, start: int,
                 num_samples: int, rows: slice):
     """``_batch_eval`` for the chunk's `rows` only (padded with zero rows

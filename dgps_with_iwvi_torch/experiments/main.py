@@ -194,16 +194,20 @@ def load_data(likelihood: str, dataset: str, split: int, *,
 
 
 @contextlib.contextmanager
-def gram_switches(fwd_precision: str, bwd_relax: bool):
-    """``kernels.GRAM_FWD_PRECISION`` and ``GRAM_BWD_RELAX`` set for the
-    duration of a run (the reference sets them for the process)."""
-    saved = kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX
-    kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX = (fwd_precision,
-                                                          bwd_relax)
+def gram_switches(fwd_precision: str, bwd_relax: bool,
+                  kuf_residual: bool | str = "auto"):
+    """``kernels.GRAM_FWD_PRECISION``, ``GRAM_BWD_RELAX`` and
+    ``GRAM_KUF_RESIDUAL`` set for the duration of a run (the reference
+    sets them for the process)."""
+    saved = (kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX,
+             kernels.GRAM_KUF_RESIDUAL)
+    (kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX,
+     kernels.GRAM_KUF_RESIDUAL) = (fwd_precision, bwd_relax, kuf_residual)
     try:
         yield
     finally:
-        kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX = saved
+        (kernels.GRAM_FWD_PRECISION, kernels.GRAM_BWD_RELAX,
+         kernels.GRAM_KUF_RESIDUAL) = saved
 
 
 def seeds(seed: int) -> tuple:

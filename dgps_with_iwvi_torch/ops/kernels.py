@@ -17,11 +17,13 @@ reference's size rule takes that path (``_rbf_gram_kres``, l.216-263;
 ``_use_kuf_residual``, l.185: float32 and at least 4 MB, so the M x M
 Kuu grams stay on plain autograd).
 
-Two module switches, read at call time as the reference reads them at
-trace time (l.61-71): ``GRAM_FWD_PRECISION`` ('highest' or 'high', the
-bf16x3 split) is the class of every gram cross-term product, and
+Three module switches, read at call time as the reference reads them at
+trace time (l.61-71, l.132): ``GRAM_FWD_PRECISION`` ('highest' or
+'high', the bf16x3 split) is the class of every gram cross-term product,
 ``GRAM_BWD_RELAX`` runs their transposed (gradient) products at
-'default', single-pass bf16. The defaults are 'highest' and off.
+'default', single-pass bf16, and ``GRAM_KUF_RESIDUAL`` ("auto": the size
+rule; True or False: every RBF gram on that path) picks the residual. The
+defaults are 'highest', off and "auto".
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ GRAM_KRES_MIN_BYTES = 4 * 1024 * 1024
 # their transposed products run single-pass bf16 (reference l.61-71)
 GRAM_FWD_PRECISION: str = "highest"
 GRAM_BWD_RELAX: bool = False
+# whether the RBF gram keeps its output as its backward residual: "auto"
+# the size rule, True or False for every RBF gram (reference l.132)
+GRAM_KUF_RESIDUAL: bool | str = "auto"
 
 STATIONARY_KINDS = ("rbf", "matern12", "matern32", "matern52", "rq",
                     "cosine")
@@ -307,12 +312,21 @@ def scaled_squared_distance(X: torch.Tensor, X2: torch.Tensor,
 
 
 def _use_kuf_residual(X: torch.Tensor, X2: torch.Tensor) -> bool:
-    """The reference's size rule: float32 and an output of >= 4 MB. A
-    symbolic size (a polymorphic-batch export) takes the plain path, as
-    in the reference (``kernels.py:185-201``): the rule is undecidable at
-    trace time, an export traces inference where the residual choice is
-    moot, and a decision would bake a bound on the batch into the
-    program."""
+    """``GRAM_KUF_RESIDUAL`` where it is True or False, else the
+    reference's size rule: float32 and an output of >= 4 MB. A symbolic
+    size (a polymorphic-batch export) takes the plain path, as in the
+    reference (``kernels.py:185-201``): the rule is undecidable at trace
+    time, an export traces inference where the residual choice is moot,
+    and a decision would bake a bound on the batch into the program.
+
+    Any other value raises: the reference reads a value other than
+    "auto" by its truth, so its string "off" turns the residual on."""
+    if GRAM_KUF_RESIDUAL != "auto":
+        if not isinstance(GRAM_KUF_RESIDUAL, bool):
+            raise ValueError(
+                f"GRAM_KUF_RESIDUAL={GRAM_KUF_RESIDUAL!r}: only True, "
+                "False and 'auto' are allowed")
+        return GRAM_KUF_RESIDUAL
     if not all(isinstance(s, int) for s in (*X.shape[:-1], *X2.shape[:-1])):
         return False
     n_out = X.shape[-2] * X2.shape[-2] * math.prod(

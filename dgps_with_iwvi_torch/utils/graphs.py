@@ -32,11 +32,14 @@ Every graph is captured on one stream per device, so that K2's scratch,
 kept per (device, stream), is one buffer sized at the first warm-up. All
 graphs replay on the caller's current stream; two graphs must not replay
 at once on two streams, since they share that scratch. If capture fails
-the call raises: nothing falls back to the eager path.
+the call raises: nothing falls back to the eager path. A capture starts
+after a full garbage collection and holds the collector off until it
+ends (``_capture``): a dead graph freed inside a capture invalidates it.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -82,8 +85,23 @@ def _warm_up(fn, stream, device):
 
 
 def _capture(graph, fn, stream):
-    with torch.cuda.graph(graph, stream=stream):
-        return fn()
+    """fn() captured into `graph` on `stream`, with Python's cyclic garbage
+    collector run to its end first and held off during the capture. A
+    dropped graph in a reference cycle (a ``GraphedEval`` and its body, a
+    finished ``fit``'s chunk function) is freed only by that collector,
+    and freeing a CUDA graph is an operation a capturing stream does not
+    permit: collected during a capture, it invalidates the capture. The
+    card is synchronized first, so no dropped graph is still running."""
+    torch.cuda.synchronize()
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            return fn()
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class Graph:

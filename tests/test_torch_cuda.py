@@ -703,6 +703,41 @@ def test_every_policy_replays_its_eager_steps(gen, policy):
     assert torch.equal(g_e.get_state(), g_g.get_state())
 
 
+def test_capture_survives_dead_graphs_in_cycles(gen):
+    """A dead graph left in a reference cycle and freed by the collector
+    inside a capture invalidates the capture (its teardown is "not
+    permitted when stream is capturing"; seen in the quality gate's
+    seventh run). Here the collector stays off until the captured call
+    turns it on at every allocation: ``_capture``'s collection beforehand
+    has left it no graph to free, and the capture replays."""
+    import gc
+
+    from dgps_with_iwvi_torch.utils import graphs
+
+    x = torch.randn((256, 256), generator=gen, device="cuda")
+    threshold, was_enabled = gc.get_threshold(), gc.isenabled()
+
+    def fn():
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1)
+            gc.enable()
+            junk = [[i] for i in range(100)]  # collections at once
+            del junk
+        return x @ x + 1.0
+
+    gc.disable()
+    try:
+        dead = [graphs.Graph(lambda: x @ x, device="cuda")]
+        dead.append(dead)           # freed only by the cyclic collector
+        del dead
+        g = graphs.Graph(fn, device="cuda")
+        first = g.first.clone()
+        assert torch.equal(g.replay(), first)
+    finally:
+        gc.set_threshold(*threshold)
+        (gc.enable if was_enabled else gc.disable)()
+
+
 def test_capture_makes_no_host_sync(gen):
     """The warm-up step, the capture and the replays of the flagship step,
     and of a request on each serving route, under

@@ -312,6 +312,72 @@ def test_gram_fwd_precision_default_raises(monkeypatch):
         tkern.K(tkern.rbf_params(2, device="cpu"), torch.zeros(3, 2))
 
 
+@pytest.fixture(params=[True, False, "auto"], ids=["on", "off", "auto"])
+def kuf_residual(request, monkeypatch):
+    """GRAM_KUF_RESIDUAL set to the same value on both sides for the test
+    (monkeypatch puts both modules' own values back)."""
+    monkeypatch.setattr(jkern, "GRAM_KUF_RESIDUAL", request.param)
+    monkeypatch.setattr(tkern, "GRAM_KUF_RESIDUAL", request.param)
+    return request.param
+
+
+# (Z, F) shapes and dtype: a 4 MB-plus float32 gram (the flagship's
+# 20 x 512 x 128), a small one, and the large one in float64
+KRES_SHAPES = {"large": ((128, 4), (20, 512, 4), "float32"),
+               "small": ((128, 4), (20, 64, 4), "float32"),
+               "large_f64": ((128, 4), (20, 512, 4), "float64")}
+
+
+@pytest.mark.parametrize("case", list(KRES_SHAPES))
+def test_gram_kuf_residual_decides_as_the_reference(kuf_residual, case):
+    zs, fs, dtype = KRES_SHAPES[case]
+    got = tkern._use_kuf_residual(
+        torch.empty(zs, dtype=getattr(torch, dtype), device="meta"),
+        torch.empty(fs, dtype=getattr(torch, dtype), device="meta"))
+    want = jkern._use_kuf_residual(jax.ShapeDtypeStruct(zs, dtype),
+                                   jax.ShapeDtypeStruct(fs, dtype))
+    assert got is bool(want)
+    if kuf_residual != "auto":
+        assert got is kuf_residual
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["same_set", "cross"])
+def test_rbf_gram_under_the_kuf_residual_switch_matches_reference(
+        kuf_residual, same):
+    """Values and gradients of the RBF gram in float64 with the switch set
+    on both sides (True: every RBF gram through the output residual)."""
+    X, X2 = _kernel_inputs("rbf")
+    X2[0] = X[1]                    # a clamped distance: K == var there
+    params = _kernel_params("rbf", X.shape[1])
+    rng = np.random.default_rng(3)
+    G = rng.standard_normal((N, N if same else M))
+    Gd = rng.standard_normal(N)
+    ref = _grams(jkern, params, X, X2, "rbf", same, G, Gd, torch_side=False)
+    got = _grams(tkern, params, X, X2, "rbf", same, G, Gd, torch_side=True)
+    scale = float(np.max(np.abs(ref[0])))
+    _close(got[0], ref[0], KERNEL_RTOL, 1e-14 * scale, "K")
+    assert len(got[2]) == len(ref[2])
+    for i, (g, r) in enumerate(zip(got[2], ref[2])):
+        _close(g, r, KERNEL_RTOL,
+               1e-12 * max(float(np.max(np.abs(r), initial=0.0)), 1.0),
+               f"gradient {i}")
+
+
+def test_gram_kuf_residual_refuses_a_string_the_reference_reads_as_on(
+        monkeypatch):
+    """The reference reads any value but "auto" by its truth: its string
+    "off" turns the residual on, even for a small gram. The port takes
+    True, False and "auto" only."""
+    monkeypatch.setattr(jkern, "GRAM_KUF_RESIDUAL", "off")
+    monkeypatch.setattr(tkern, "GRAM_KUF_RESIDUAL", "off")
+    zs, fs, dtype = KRES_SHAPES["small"]
+    assert jkern._use_kuf_residual(jax.ShapeDtypeStruct(zs, dtype),
+                                   jax.ShapeDtypeStruct(fs, dtype)) is True
+    with pytest.raises(ValueError, match="GRAM_KUF_RESIDUAL"):
+        tkern.K(tkern.rbf_params(2, device="cpu"), torch.zeros(3, 2),
+                torch.zeros(4, 2))
+
+
 # ---- likelihoods ----------------------------------------------------------
 
 S_LIK, N_LIK = 3, 6

@@ -261,6 +261,61 @@ def test_graph_counts_its_launches_once_per_replay(monkeypatch):
     build.reset_launches()
 
 
+class _Cycle:
+    """An object in a reference cycle: only the cyclic collector frees it,
+    as it frees a dropped ``GraphedEval`` (its body closes over it)."""
+
+    def __init__(self):
+        self.me = self
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+def test_capture_collects_first_and_holds_the_collector_off(monkeypatch,
+                                                            raises):
+    """A dead graph freed by the collector during a capture invalidates
+    the capture on the card ("operation not permitted when stream is
+    capturing" from the graph's teardown): ``_capture`` collects every
+    dead cycle before the capture, keeps the collector off inside it, and
+    puts it back after, also when the captured call raises."""
+    import gc
+    import weakref
+
+    events = []
+
+    class FakeCapture:
+        def __init__(self, graph, stream=None):
+            events.append(("graph", graph, stream))
+
+        def __enter__(self):
+            events.append("begin")
+
+        def __exit__(self, *exc):
+            events.append("end")
+
+    monkeypatch.setattr(torch.cuda, "graph", FakeCapture)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: events.append("sync"))
+    dead = _Cycle()
+    ref = weakref.ref(dead)
+    del dead
+    assert ref() is not None and gc.isenabled()
+
+    def fn():
+        events.append(("in capture", ref() is None, gc.isenabled()))
+        if raises:
+            raise RuntimeError("captured call failed")
+        return 7
+
+    if raises:
+        with pytest.raises(RuntimeError, match="captured call failed"):
+            graphs._capture("g", fn, "s")
+    else:
+        assert graphs._capture("g", fn, "s") == 7
+    assert events == ["sync", ("graph", "g", "s"), "begin",
+                      ("in capture", True, False), "end"]
+    assert gc.isenabled()
+
+
 def test_graph_cache_keys(fake_graphs):
     """Same key, same graph (replayed); a ragged batch's key, a new graph;
     the plain versions, a graph of their own."""
