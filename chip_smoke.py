@@ -31,6 +31,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sample element by element against the plain Philox stream, the
    recovered noise over 8.4M draws (mean, variance, share beyond 3 within
    5 standard errors), one seed bitwise repeatable and two seeds apart;
+   and K1-K4 at the IW-vs-VI experiment's shapes (M=16 for phase 14's
+   pin, M=64 for the full-size runs: K1 grams, K2/K3 'epi' at D=1, K4/K5
+   on the S=500 test sets with d_in=2; K4 below M=64 held element by
+   element to the bound of its bf16 rounding, ``_k4_flip_check``, with
+   the planted faults that check catches);
 4. serving: the LGG model of phase 3, built from a seed on bench.py's
    synthetic data, 8 requests of
    B=8192 at S=100 scored through ``serving.Scorer`` with
@@ -168,6 +173,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K2 or K3 (kernels line paths ``gate_candidate`` and ``gate_highest``).
    The year configuration is left out: its k-means++ initialization
    alone takes minutes on the host per run.
+14. iw_vs_vi: the reference's pin of the paper's claim
+   (tests/test_iw_quality.py:26-33) through
+   ``experiments.iw_vs_vi.run_one``: bimodal data (256 train, 512 test
+   rows), LG, M=16, 1500 steps, VI against IW with K=10, at seeds 0, 1, 2
+   and 3. One line per seed (both NLLs, both IW20 bounds, ESS, seconds
+   per run); fails unless the mean NLL gap over the seeds is above the
+   reference's 0.05 nats and the mean IW20 bound of the IW-trained
+   parameters is above the VI-trained ones'. Then one 500-step run at
+   the full experiment's shape (bimodal N=2000, LGG IW20, M=64, minibatch
+   512 < N). Launches counted per run (``_pin_want``; kernels line paths
+   ``iw_vs_vi_train`` and ``iw_vs_vi_eval``): training K1 twice per step
+   and once more, and K2/K3 'epi' per GP layer and step only below N (the
+   pin's full-batch step, B = N = 256, runs at 'highest', so no K2/K3);
+   evaluation K1, K4 'infer' and K4 'sample' per inner GP layer once per
+   test chunk and per bound.
 
 ``fit``, ``Scorer`` and ``evaluate`` replay CUDA graphs on the card, so
 phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with their
@@ -382,6 +402,15 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
     Kspd = A @ A.transpose(-1, -2) + M * torch.eye(M, device="cuda")
     spd = _chol_case(torch, chol, linalg, Kspd, jit)
 
+    # the IW-vs-VI experiment's grams: M=16 (phase 14's pin, one GP
+    # layer) and M=64 (the full-size runs, up to two GP layers)
+    small_m = {}
+    for g, m in ((1, 16), (2, 64)):
+        A = torch.randn((g, m, m), generator=gen, device="cuda")
+        small_m[f"[{g},{m},{m}]"] = _chol_case(
+            torch, chol, linalg, A @ A.transpose(-1, -2) + m * torch.eye(
+                m, device="cuda"), jit)
+
     # rank-deficient gram: the ladder must climb to a usable factor
     v = torch.randn((M, 2), generator=gen, device="cuda")
     Kd = (v @ v.T)[None]
@@ -422,14 +451,15 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
                            served["max_abs_err_Linv"],
                            natgrad["max_abs_err_L"],
                            natgrad["max_abs_err_Linv"]),
-        "max_rel_err": max(served["max_rel_err"], natgrad["max_rel_err"]),
+        "max_rel_err": max([served["max_rel_err"], natgrad["max_rel_err"]]
+                           + [c["max_rel_err"] for c in small_m.values()]),
         "tol": "m*u*cond(K+jI)*max|plain| at the selected level",
         "served_kuu": served, "natgrad_p": natgrad,
         "one_launch_wall_ms": one_launch_wall_ms(
             torch, lambda: chol.chol_inv(Kuu, jit)),
         "empty_kernel_ms": floor["ms"],
         "empty_kernel_one_launch_wall_ms": floor["one_launch_wall_ms"],
-        "spd": dict(spd, ms=spd_ms),
+        "spd": dict(spd, ms=spd_ms), "small_m": small_m,
         "rank_deficient_level": int(lvl[0]),
         "rank_deficient_level_plain": int(lvl_p[0]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -573,6 +603,11 @@ EPI_EDGE_CASES = [
     (2, 264, 1000, 8, False, "epi"), (2, 264, 1000, 1, True, "epi"),
     (2, M, 1000, 3, False, "qvar"), (2, M, 1000, 16, False, "epi"),
     (1, M, 1000, 8, True, "epi"),
+    # the IW-vs-VI experiment's training steps at M=64, B=512: the natgrad
+    # final layer under IW20 (L=20) and VI (L=1), an inner layer (root
+    # D=1); and M=16 at B=256
+    (20, 64, 512, 1, True, "epi"), (1, 64, 512, 1, True, "epi"),
+    (20, 64, 512, 1, False, "epi"), (10, 16, 256, 1, True, "epi"),
 ]
 
 
@@ -841,6 +876,18 @@ def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
                        names["epi"], tol)
     m100["rel_vs_unpadded_plain"] = _rel_errs(
         got, _bwd_call(qvar, "epi", *args, False, plain=True))
+    # the IW-vs-VI experiment's shapes: M=64 at B=512 (natgrad final layer,
+    # cov D=1, and an inner layer, root D=1) and M=16 at B=256
+    small_m = {}
+    for L, m, n, cov in ((20, 64, 512, True), (20, 64, 512, False),
+                         (10, 16, 256, True)):
+        label = f"L={L} M={m} N={n} D=1 {'cov' if cov else 'root'} epi"
+        args = _bwd_inputs(torch, gen, L, m, n, 1, cov)
+        got = _bwd_call(qvar, "epi", *args, cov, plain=False)
+        small_m[label], _ = _compare(
+            torch, f"epilogue_bwd [{label}]", got,
+            _bwd_padded_plain(torch, qvar, "epi", *args, cov), names["epi"],
+            tol)
     # no float atomics: two launches give bitwise-equal sums over the grid
     determinism = {}
     for n in (B_TRAIN, B_BIG):
@@ -859,7 +906,8 @@ def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
                    K3_REPLACES[form], cases[form],
                    "dA 1e-4, dW and dq_mu 1e-3 x max|plain|")
             for form in cases]
-    return rows, {"m100_errs": m100, "determinism": determinism}
+    return rows, {"m100_errs": m100, "small_m_errs": small_m,
+                  "determinism": determinism}
 
 
 # the harness phase's evaluation: the kin8nm surrogate's 820 test rows go
@@ -881,6 +929,11 @@ FUSED_CASES = [
     ("ragged N=1000", 1000, D_X + 1, M, D_X, None),
     ("M=100", 1000, D_X + 1, 100, D_X, None),
     ("M=200", 1000, D_X + 1, 200, D_X, None),
+    # the IW-vs-VI experiment's evaluation at S=500: LG's final layer
+    # (input x and w, d_in=2) on phase 14's 512 test rows at M=16 (K4 held
+    # by ``_k4_flip_check``) and on the full size's 2000 rows at M=64
+    ("iw_vs_vi pin test set final layer, M=16", 500 * 512, 2, 16, 1, None),
+    ("iw_vs_vi test set final layer, M=64", 500 * 2000, 2, 64, 1, None),
 ]
 K4_REPLACES = "dgps_with_iwvi_tpu/ops/pallas/serve_cond.py:73"
 K5_REPLACES = {"fused": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:51",
@@ -893,6 +946,25 @@ K5_REPLACES = {"fused": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:51",
 # The largest reading on the H100 was 8.7e-4 of max|plain| (var, serving
 # inner layer); the sample's and var's limit sits a little over twice that
 K4_TOL = {"sample": 2e-3, "mean": 1e-4, "var": 2e-3}
+# That limit holds from M=64 up (8.4e-4 at M=64). With fewer terms one
+# flipped bf16(A) element is a larger share of the q-variance: on an H100
+# 80GB HBM3 at 700 W, K4's var lay 2.9e-3 of max|plain| from its plain
+# version at M=16, while both lay 4.7e-3 from the unrounded float64
+# function, equal to four digits. Below K4_FLAT_M, ``_k4_flip_check``
+# holds var and the sample element by element to the bound of at most
+# FLIPS_PER_ROW such flips in a row; at most FLIP_SHARE of all elements,
+# and TILE_SHARE of one K4 tile's, may differ by more than K4_TOL's mean
+# share of max|plain|: flips are scattered, a fault of a tile or warp is
+# not.
+K4_FLAT_M = 64
+BF16_ULP = 2.0 ** -7   # a bf16 unit, relative to |x|, at most
+FLIPS_PER_ROW = 2
+FLIP_SHARE = 0.005
+K4_TILE_ROWS = 128     # rows of one K4 tile (csrc/serve_cond.cu chain_kernel)
+K4_WARP_ROWS = 16      # rows of one warp (kRows)
+TILE_SHARE = 1 / 16    # 8 rows of a tile: half a warp's
+# planted faults of _k4_fault_probe: relative sizes 1e-6 .. 1
+FAULT_LADDER = [10.0 ** (e / 4) for e in range(-24, 1)]
 K5_TOL = {"sample": 1e-5, "mean": 1e-5, "var": 1e-5, "kxz": 1e-5, "a": 1e-5}
 
 
@@ -935,6 +1007,144 @@ def _k5_bound(n, d_in, m, d, sample, residuals):
                  f32_ops=2 * n * m * (d_in + m + d) + n * m * (m + 1) * d)
 
 
+def _k4_flip_limits(torch, ref, args, eps) -> tuple:
+    """Per-element limits of ``_k4_flip_check`` for K4's outputs `ref`
+    (its plain version's) on `args`, with `eps` or None: (names, limit,
+    slack, dist). One bf16(A) element a_j that the two sides round to
+    neighbouring values moves by u_j <= BF16_ULP |a_j|, and the q-variance
+    sum_k t_dk^2 (t_d = bf16(A) tril(bf16(Lq_d))) by at most
+    b_j = sum_d 2 u_j |(t_d tril(Lq_d)^T)_j| + 2 u_j^2 |row j of Lq_d|^2
+    (the square term doubled for the cross term of two flips). A row's
+    var limit is the sum of its FLIPS_PER_ROW largest b_j plus `slack`,
+    K4_TOL's mean share of max|plain| for the order of the f32 sums; the
+    sample's adds |eps| times the sd's share of it; the mean's is the
+    slack. `dist`: each side's mean and var from the unrounded float64
+    function relative to max|plain|, filled by ``_k4_flip_check``."""
+    xs, zs, var, linv, q_mu, lq = (t.double() for t in args)
+    d2 = torch.clamp((xs * xs).sum(1, keepdim=True) - 2.0 * xs @ zs.T
+                     + (zs * zs).sum(1)[None], min=0.0)
+    a = (var * torch.exp(-0.5 * d2)) @ linv.T                 # [N, M]
+    ltri = torch.tril(lq.to(torch.bfloat16).double())        # [D, M, M]
+    t = a.to(torch.bfloat16).double()[None] @ ltri           # [D, N, M]
+    u = BF16_ULP * a.abs()
+    b = (2.0 * u[None] * (t @ ltri.transpose(-1, -2)).abs()
+         + 2.0 * u[None] ** 2 * (ltri * ltri).sum(-1)[:, None]).sum(0)
+    flips = torch.topk(b, min(FLIPS_PER_ROW, b.shape[1]), dim=1).values.sum(
+        1, keepdim=True)                                     # [N, 1]
+    unrounded = {"mean": a @ q_mu, "var": torch.clamp(
+        var - (a * a).sum(1, keepdim=True), min=0.0)
+        + (a[None] @ torch.tril(lq)).square().sum(-1).T}
+    del a, t, u, b
+    names = (("sample",) if eps is not None else ()) + ("mean", "var")
+    out = dict(zip(names, ref))
+    slack = {k: K4_TOL["mean"] * float(v.abs().max()) for k, v in out.items()}
+    dv = flips + slack["var"]
+    limit = {"mean": torch.full_like(flips, slack["mean"]), "var": dv}
+    if eps is not None:
+        sd = torch.sqrt(torch.clamp(out["var"].double(), min=1e-12))
+        limit["sample"] = (slack["mean"] + slack["sample"] + eps.abs().double()
+                           * torch.minimum(dv / sd, torch.sqrt(dv)))
+    return names, limit, slack, unrounded
+
+
+def _k4_flip_verdict(torch, names, got, ref, limit, slack) -> tuple:
+    """(problems, errs, shares) of `got` against `ref` under the limits of
+    ``_k4_flip_limits``: an output fails where an element is past its
+    limit, or more than FLIP_SHARE of all its elements or TILE_SHARE of
+    one K4 tile's are past the slack. `shares`: by output, the share of
+    all elements past the slack and the largest share of one tile's."""
+    problems, errs, shares = [], {}, {}
+    for name, g, r in zip(names, got, ref):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            problems.append(f"{name} shape {tuple(g.shape)} vs "
+                            f"{tuple(r.shape)} or non-finite")
+            continue
+        diff = (g.double() - r.double()).abs()
+        over = int((diff > limit[name]).sum())
+        moved = (diff > slack[name]).double()
+        pad = -moved.shape[0] % K4_TILE_ROWS
+        tiles = torch.nn.functional.pad(moved, (0, 0, 0, pad)).reshape(
+            -1, K4_TILE_ROWS * moved.shape[1]).mean(1)
+        share, tile = float(moved.mean()), float(tiles.max())
+        shares[name] = {"all": share, "tile": tile}
+        errs[name] = float(diff.max())
+        if over or share > FLIP_SHARE or tile > TILE_SHARE:
+            problems.append(
+                f"{name}: {over} elements past the bf16 flip bound, a share "
+                f"{share} past {K4_TOL['mean']} of max|plain| (at most "
+                f"{FLIP_SHARE}), {tile} of one tile's (at most "
+                f"{TILE_SHARE}), max |err| {errs[name]}")
+    return problems, errs, shares
+
+
+def _k4_fault_probe(torch, names, got, ref, limit, slack) -> dict:
+    """The smallest planted fault of FAULT_LADDER that
+    ``_k4_flip_verdict`` fails, on K4's own var: every row scaled by
+    (1 + d), one K4 tile's K4_TILE_ROWS rows or one warp's K4_WARP_ROWS
+    scaled by (1 + d), one row's var (the row whose limit is the
+    median's) shifted by d max|plain|;
+    with the quantiles of the var limit relative to max|plain|, which
+    say which fault of one element passes."""
+    i = names.index("var")
+    v, top = got[i], float(ref[i].abs().max())
+    rel = (limit["var"].flatten() / top).cpu()
+    mid = int(torch.argsort(rel)[rel.numel() // 2])
+    faults = {
+        "every row x (1+d)": lambda d: v * (1.0 + d),
+        f"one {K4_TILE_ROWS}-row tile x (1+d)": lambda d: torch.cat(
+            [v[:K4_TILE_ROWS] * (1.0 + d), v[K4_TILE_ROWS:]]),
+        f"one warp's {K4_WARP_ROWS} rows x (1+d)": lambda d: torch.cat(
+            [v[:K4_WARP_ROWS] * (1.0 + d), v[K4_WARP_ROWS:]]),
+        "one element + d max|plain|": lambda d: v.index_put(
+            (torch.tensor([mid], device=v.device),),
+            v[mid] + d * top),
+    }
+    caught = {}
+    for label, plant in faults.items():
+        caught[label] = None
+        for d in FAULT_LADDER:
+            bad = list(got)
+            bad[i] = plant(d)
+            if _k4_flip_verdict(torch, names, bad, ref, limit, slack)[0]:
+                caught[label] = d
+                break
+    q = torch.quantile(rel.double(), torch.tensor([0.5, 0.99, 1.0],
+                                                  dtype=torch.float64))
+    return {"smallest_caught": caught,
+            "var_limit_rel_quantiles": {"median": float(q[0]),
+                                        "p99": float(q[1]),
+                                        "max": float(q[2])}}
+
+
+def _k4_flip_check(torch, what, got, ref, args, eps, probe=False) -> tuple:
+    """K4 against its plain version below K4_FLAT_M, where the two may
+    round an element of A to neighbouring bf16 values: fails unless
+    ``_k4_flip_verdict`` passes under ``_k4_flip_limits``. Returns (errs,
+    rels) by output as ``_compare`` does, and a record: each output's
+    shares past the slack, each side's distance from the unrounded float64
+    function relative to max|plain|, and with `probe` the planted faults
+    that the check catches (``_k4_fault_probe``)."""
+    names, limit, slack, unrounded = _k4_flip_limits(torch, ref, args, eps)
+    problems, errs, shares = _k4_flip_verdict(torch, names, got, ref, limit,
+                                              slack)
+    if problems:
+        fail(f"{what}: " + "; ".join(problems))
+    out = dict(zip(names, ref))
+    rec = {"share_past_slack": shares, "share_limits": {
+        "all": FLIP_SHARE, "tile": TILE_SHARE}}
+    for side, outs in (("kernel", got), ("plain", ref)):
+        for k, v in zip(names, outs):
+            if k in unrounded:
+                rec[f"vs_unrounded_f64_{side}_{k}"] = (
+                    float((v.double() - unrounded[k]).abs().max())
+                    / float(out[k].abs().max()))
+    if probe:
+        rec["fault_probe"] = _k4_fault_probe(torch, names, got, ref, limit,
+                                             slack)
+    rels = {k: errs[k] / float(out[k].abs().max()) for k in errs}
+    return errs, rels, rec
+
+
 def fused_phase(torch, hopper, gen) -> tuple:
     """K4 (with and without the sample) and K5 (fused and sample, with
     their residuals) against their plain versions at the serving and
@@ -971,12 +1181,21 @@ def fused_phase(torch, hopper, gen) -> tuple:
         for name, with_eps in (("serve_cond:sample", True),
                                ("serve_cond:infer", False)):
             names = (("sample",) if with_eps else ()) + ("mean", "var")
-            errs, rels = _compare(torch, f"serve_cond [{label}]",
-                                  k4_call(with_eps), k4_call(with_eps, True),
-                                  names, K4_TOL)
+            flip = None
+            if m < K4_FLAT_M:
+                errs, rels, flip = _k4_flip_check(
+                    torch, f"serve_cond [{label}]", k4_call(with_eps),
+                    k4_call(with_eps, True), args, eps if with_eps else None,
+                    probe=not with_eps)
+            else:
+                errs, rels = _compare(torch, f"serve_cond [{label}]",
+                                      k4_call(with_eps),
+                                      k4_call(with_eps, True), names, K4_TOL)
             case = {"case": label, "shape": shape, "errs": errs,
                     "rels": rels, "max_abs_err": max(errs.values()),
                     "max_rel_err": max(rels.values())}
+            if flip is not None:
+                case["flip_check"] = flip
             if (layer == "inner") == with_eps and layer in ("inner", "final"):
                 case["ms"] = time_ms(torch, lambda: k4_call(with_eps), 10)
                 case["device_ms"] = device_ms(torch,
@@ -3962,6 +4181,149 @@ def gate_phase(torch, card: str, tmp: str) -> dict:
     return {"verdict": verdict, "runs": runs, "launches": sides}
 
 
+# phase 14: the reference's pin of the paper's claim
+# (tests/test_iw_quality.py:26-33), at four seeds fixed here
+PIN_SEEDS = (0, 1, 2, 3)
+PIN_DATA = (256, 512, 0)        # standardized(n_train, n_test, seed)
+PIN_M, PIN_STEPS, PIN_K = 16, 1500, 10
+PIN_MARGIN = 0.05               # nats: the reference's NLL margin
+PIN_BOUNDS = 3                  # elbo VI, elbo IW20, iw_diagnostics
+# one run at the full experiment's shape (bimodal N=2000/2000, M=64,
+# minibatch 512 < N), cut to one 500-step chunk: the path of the
+# published rows, LGG IW20 (two GP layers)
+FULL_DATA = (2000, 2000, 0)
+FULL_CONF, FULL_K, FULL_M, FULL_STEPS = "LGG", 20, 64, 500
+
+
+def _pin_want(steps: int, n_train: int, n_test: int,
+              conf: str = "LG") -> tuple:
+    """Launches of one run of ``run_one``: (training, evaluation).
+    Training: K1 for the Kuu prefactor (every layer's in one batch) and
+    for the natgrad step on every step, and once for the trained q(u)'s
+    canonical form; K2/K3 'epi' once per GP layer and step, only on a
+    minibatch below N, since a full-batch step (min(512, N) = N, as at the
+    pin) rises to the 'highest' classes. Evaluation, in no-grad on the
+    card: per S=500 test chunk and per bound (PIN_BOUNDS), K1 once, K4
+    'infer' once (the final layer) and K4 'sample' once per inner GP
+    layer."""
+    layers = conf.count("G")
+    train = {"chol_inv": 2 * steps + 1}
+    if min(512, n_train) < n_train:
+        train["epilogue:epi"] = train["epilogue_bwd:epi"] = layers * steps
+    calls = -(-n_test // EVAL_BATCH) + PIN_BOUNDS
+    evals = {"chol_inv": calls, "serve_cond:infer": calls}
+    if layers > 1:
+        evals["serve_cond:sample"] = (layers - 1) * calls
+    return train, evals
+
+
+def iw_vs_vi_phase(torch, card: str) -> dict:
+    """14. iw_vs_vi: ``experiments.iw_vs_vi.run_one`` on the reference's
+    pin (bimodal data, LG, M=16, 1500 steps, VI against IW with K=10) at
+    each of PIN_SEEDS; fails unless the mean NLL gap (VI minus IW) is
+    above PIN_MARGIN and the mean IW20 bound of the IW-trained parameters
+    is above the VI-trained ones'. Then one run at the full experiment's
+    shape (FULL_*), whose minibatch is below N, with finite outputs.
+    Launches counted per run: training (``fit``, build included) and
+    evaluation (``evaluate`` and the bounds), kernels line paths
+    ``iw_vs_vi_train`` / ``iw_vs_vi_eval``."""
+    from dgps_with_iwvi_torch.experiments import iw_vs_vi as ivv
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    sides = {"iw_vs_vi_train": {}, "iw_vs_vi_eval": {}}
+    fit = ivv.fit
+    seg = {}
+
+    def counted_fit(*a, **kw):
+        out = fit(*a, **kw)
+        seg["train"] = {k: v for k, v in _path_counts(build).items() if v}
+        build.reset_launches()
+        return out
+
+    def counted_run(tag, conf, mode, K, data, steps, m, seed):
+        """run_one with its launches held to ``_pin_want``'s."""
+        want_train, want_eval = _pin_want(steps, len(data[0]),
+                                          len(data[2]), conf)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = ivv.run_one(tag, conf, mode, K, data, iterations=steps, M=m,
+                          seed=seed)
+        out["run_s"] = time.perf_counter() - t0
+        got_eval = {k: v for k, v in _path_counts(build).items() if v}
+        for what, got, want in (("training", seg["train"], want_train),
+                                ("evaluation", got_eval, want_eval)):
+            if got != want:
+                fail(f"iw_vs_vi: {tag}: {what} launches {got}, want {want}")
+        for side, counts in (("iw_vs_vi_train", seg["train"]),
+                             ("iw_vs_vi_eval", got_eval)):
+            for k, v in counts.items():
+                sides[side][k] = sides[side].get(k, 0) + v
+        out["launches"] = {"train": seg["train"], "eval": got_eval}
+        return out
+
+    runs = []
+    ivv.fit = counted_fit
+    try:
+        data = ivv.standardized(*PIN_DATA, bimodal=True)
+        for seed in PIN_SEEDS:
+            pair = {}
+            for mode, K in (("VI", 1), ("IW", PIN_K)):
+                tag = f"LG-{mode}{K if mode == 'IW' else ''} seed {seed}"
+                pair[mode] = counted_run(tag, "LG", mode, K, data,
+                                         PIN_STEPS, PIN_M, seed)
+            vi, iw = pair["VI"], pair["IW"]
+            row = {"seed": seed, "nll_vi": -vi["test_loglik"],
+                   "nll_iw": -iw["test_loglik"],
+                   "bound_iw20_vi": vi["bound_iw20"],
+                   "bound_iw20_iw": iw["bound_iw20"],
+                   "ess20_vi": vi["ess20"], "ess20_iw": iw["ess20"],
+                   "run_s_vi": vi["run_s"], "run_s_iw": iw["run_s"],
+                   "steps_per_s_vi": vi["steps_per_s"],
+                   "steps_per_s_iw": iw["steps_per_s"]}
+            runs.append(row)
+            print(f"iw_vs_vi: seed {seed}: NLL VI {row['nll_vi']:+.4f} IW"
+                  f"{PIN_K} {row['nll_iw']:+.4f} (gap "
+                  f"{row['nll_vi'] - row['nll_iw']:+.4f}); IW20 bound/n "
+                  f"VI-trained {row['bound_iw20_vi']:+.4f} IW-trained "
+                  f"{row['bound_iw20_iw']:+.4f}; ESS(K=20) "
+                  f"{row['ess20_vi']:.1f} / {row['ess20_iw']:.1f}; "
+                  f"{row['run_s_vi']:.1f} / {row['run_s_iw']:.1f} s per run "
+                  f"({row['steps_per_s_vi']:.0f} / "
+                  f"{row['steps_per_s_iw']:.0f} steps/s, {PIN_STEPS} steps "
+                  f"graphed, capture included); on {card}")
+        tag = f"bimodal/{FULL_CONF}-IW{FULL_K} ({FULL_STEPS} steps)"
+        full = counted_run(tag, FULL_CONF, "IW", FULL_K,
+                           ivv.standardized(*FULL_DATA, bimodal=True),
+                           FULL_STEPS, FULL_M, 0)
+    finally:
+        ivv.fit = fit
+    bad = [k for k, v in full.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad:
+        fail(f"iw_vs_vi: {tag}: non-finite {bad}")
+    print(f"iw_vs_vi: {tag} at N={FULL_DATA[0]}, M={FULL_M}, minibatch "
+          f"512: NLL {-full['test_loglik']:+.4f}, IW20 bound/n "
+          f"{full['bound_iw20']:+.4f}, {full['steps_per_s']:.0f} steps/s, "
+          f"{full['run_s']:.1f} s; launches {json.dumps(full['launches'])}; "
+          f"on {card}")
+    gap = float(np.mean([r["nll_vi"] - r["nll_iw"] for r in runs]))
+    b_vi = float(np.mean([r["bound_iw20_vi"] for r in runs]))
+    b_iw = float(np.mean([r["bound_iw20_iw"] for r in runs]))
+    print(f"iw_vs_vi: mean NLL gap {gap:+.4f} nats over seeds "
+          f"{list(PIN_SEEDS)} (must exceed {PIN_MARGIN}); mean IW20 bound/n "
+          f"IW-trained {b_iw:+.4f} vs VI-trained {b_vi:+.4f}")
+    if not gap > PIN_MARGIN:
+        fail(f"iw_vs_vi: mean NLL gap {gap} is not above {PIN_MARGIN}")
+    if not b_iw > b_vi:
+        fail(f"iw_vs_vi: mean IW20 bound of the IW-trained parameters "
+             f"{b_iw} is not above the VI-trained ones' {b_vi}")
+    pin_train, pin_eval = _pin_want(PIN_STEPS, PIN_DATA[0], PIN_DATA[1])
+    return {"runs": runs, "mean_nll_gap": gap, "mean_bound_iw20_vi": b_vi,
+            "mean_bound_iw20_iw": b_iw, "full_size_run": full,
+            "launches": sides,
+            "launches_per_run": {"train": pin_train, "eval": pin_eval}}
+
+
 def _parent_libs(hopper, build, parent: str) -> dict:
     """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
@@ -4253,6 +4615,10 @@ def main() -> int:
         rec["gate"] = gate_phase(torch, card, tmp)
         rec["gate"]["phase_s"] = time.perf_counter() - t0
         print(f"gate: phase 13 took {rec['gate']['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        rec["iw_vs_vi"] = iw_vs_vi_phase(torch, card)
+        rec["iw_vs_vi"]["phase_s"] = time.perf_counter() - t0
+        print(f"iw_vs_vi: phase 14 took {rec['iw_vs_vi']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -4294,7 +4660,8 @@ def main() -> int:
                 for label, r in rec["graphs"][kind].items()
                 if "turns" in r
                 for i, t in enumerate(r["turns"])},
-             **rec["gate"]["launches"]}
+             **rec["gate"]["launches"],
+             **rec["iw_vs_vi"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -4325,6 +4692,7 @@ def main() -> int:
     print("flops: " + json.dumps(rec["flops"]))
     print("graphs: " + json.dumps(rec["graphs"]))
     print("gate: " + json.dumps(rec["gate"]))
+    print("iw_vs_vi: " + json.dumps(rec["iw_vs_vi"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

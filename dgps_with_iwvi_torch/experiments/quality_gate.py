@@ -54,7 +54,6 @@ import argparse
 import dataclasses
 import datetime
 import json
-import subprocess
 import sys
 import time
 
@@ -62,7 +61,7 @@ import numpy as np
 import torch
 
 from dgps_with_iwvi_torch.data import get_regression_data
-from dgps_with_iwvi_torch.device import resolve_device
+from dgps_with_iwvi_torch.device import backend, resolve_device
 from dgps_with_iwvi_torch.evaluation import evaluate, metrics
 from dgps_with_iwvi_torch.experiments.main import gram_switches
 from dgps_with_iwvi_torch.models import BuildArgs, build_model, elbo
@@ -160,23 +159,6 @@ def judge(ref: dict, ref2: dict, cand: dict, rel_tol: float,
             "tol_elbo_rel": tol_elbo, "d_nll": d_nll,
             "seed_band_nll": band_nll, "tol_nll": tol_nll,
             "finite": finite}
-
-
-def backend(device: torch.device) -> str:
-    """'cpu', or the card's name and power limit (as nvidia-smi gives it;
-    the name alone where nvidia-smi does not answer)."""
-    if device.type != "cuda":
-        return "cpu"
-    name = torch.cuda.get_device_name(device)
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
-             "-i", str(device.index or 0)],
-            capture_output=True, text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired):
-        return name
-    limit = out.stdout.strip()
-    return f"{name}, {limit}" if out.returncode == 0 and limit else name
 
 
 def parse_args(argv=None):

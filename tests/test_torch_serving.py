@@ -208,6 +208,9 @@ def test_port_imports_no_jax():
             "'dgps_with_iwvi_torch.parallel.sharding', "
             "'dgps_with_iwvi_torch.utils.flops', "
             "'dgps_with_iwvi_torch.experiments.quality_gate', "
+            "'dgps_with_iwvi_torch.experiments.iw_vs_vi', "
+            "'dgps_with_iwvi_torch.experiments.baseline_configs', "
+            "'dgps_with_iwvi_torch.experiments.render_suite', "
             "'dgps_with_iwvi_torch.demos.toy_1d', "
             "'dgps_with_iwvi_torch.demos.multitask_icm'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
