@@ -188,6 +188,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    pin's full-batch step, B = N = 256, runs at 'highest', so no K2/K3);
    evaluation K1, K4 'infer' and K4 'sample' per inner GP layer once per
    test chunk and per bound.
+15. measure: the reference's measurement tools as the package has them
+   (``experiments.profile_step``, ``roofline``, ``peak_probe``,
+   ``predict_bench``) on the flagship step at B=512 (kin8nm surrogate,
+   LGG IW K=20 M=128): ``profile_step`` over replayed steps, whose hand
+   kernels' launches per step (``build.launch_costs``) must be K1 2, K2
+   'epi' 2 and K3 'epi' 2; ``roofline``, whose hand-kernel rows must move
+   the bytes and do the operations that ``ops/hopper/cost.py`` gives for
+   the step's shapes, each bound at the sum of its launches' bounds,
+   none reading faster than that bound / 1.05 (a faster one means the
+   cost model counts wrong), and every tensor list resolved, the
+   optimizer's foreach rows moving bytes; ``peak_probe --quick``, no
+   reading past 105% of the data sheet; ``predict_bench`` at B=8192
+   only, 3 rounds, every scored value finite. Launches exact per tool
+   (kernels line paths ``measure_profile``, ``measure_roofline``,
+   ``measure_predict``).
 
 ``fit``, ``Scorer`` and ``evaluate`` replay CUDA graphs on the card, so
 phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with their
@@ -218,10 +233,6 @@ import tempfile
 import time
 
 import numpy as np
-
-PEAK_BF16 = 989e12   # dense tensor-core FLOP/s, H100 SXM data sheet
-PEAK_F32 = 67e12     # f32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 
 S_SERVE, B_SERVE, M, D_X = 100, 8192, 128, 8
 REQUESTS = 8
@@ -280,18 +291,6 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
-    """(bound_ms, bound_by): the largest of the bytes over the memory rate
-    and the operations of each type over that type's peak rate (the
-    tensor cores and the CUDA cores run at once, so the two op times do
-    not add)."""
-    t_bytes = bytes_moved / PEAK_BYTES
-    t_ops = max(bf16_ops / PEAK_BF16, f32_ops / PEAK_F32)
-    if t_ops > t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
 
 
 def max_err(a, b) -> float:
@@ -429,12 +428,11 @@ def chol_phase(torch, hopper, linalg, gen, Kuu, jitter, tries, P) -> dict:
     plain_ms = time_ms(torch, lambda: chol.chol_inv_plain(Kuu, jit), 20)
     library_ms = time_ms(torch, lambda: chol_library(torch, Kuu, jit), 20)
     floor = launch_floor(torch)
-    # the function: G factors and their inverses (K in, L and Linv out,
-    # the ladder's jitters in); Cholesky M^3/3 + triangular inverse M^3/3
-    b_ms, b_by = bound(bytes_moved=4 * (3 * G * M * M + len(jit)),
-                       f32_ops=G * (2.0 / 3.0) * M ** 3)
-    ng_b_ms, ng_b_by = bound(bytes_moved=4 * (3 * M * M + len(jit_ng)),
-                             f32_ops=(2.0 / 3.0) * M ** 3)
+    # the function: G factors and their inverses (ops/hopper/cost.py, the
+    # package's one cost model and table of peaks, as for every kernel)
+    cost = hopper.cost
+    b_ms, b_by = cost.bound(*cost.chol_inv(G, M, len(jit)))
+    ng_b_ms, ng_b_by = cost.bound(*cost.chol_inv(1, M, len(jit_ng)))
     natgrad.update(
         shape=f"natgrad P [1,{M},{M}] f32 x {len(jit_ng)} jitter levels",
         ms=time_ms(torch, lambda: chol.chol_inv(P, jit_ng), 50),
@@ -568,14 +566,9 @@ def _epi_case_on(torch, qvar, label, A, W, q_mu, cov, form) -> dict:
                                                 True), 3, 1)
     dev_ms = device_ms(torch, lambda: _epi_call(qvar, A, W, q_mu, cov, form,
                                                 False))
-    mean, ssq = form == "epi", form != "qvar"
-    out_floats = Lx * D * N * (2 if mean else 1) + (Lx * N if ssq else 0)
-    in_floats = Lx * M * N + D * M * M + (M * D if mean else 0)
-    b_ms, b_by = bound(
-        bytes_moved=4 * (in_floats + out_floats),
-        bf16_ops=2 * Lx * D * M * M * N + (6 * Lx * D * M * N if mean
-                                           else 0),
-        f32_ops=2 * Lx * D * M * N + (2 * Lx * M * N if ssq else 0))
+    from dgps_with_iwvi_torch.ops.hopper import cost
+
+    b_ms, b_by = cost.bound(*cost.epilogue(Lx, A.shape[-2], N, D, form))
     del A, W, q_mu
     torch.cuda.empty_cache()
     return {"case": label, "shape": f"A [{Lx},{M},{N}], W [{D},{M},{M}]",
@@ -795,26 +788,12 @@ def _rel_errs(got, ref) -> list:
     return [max_err(g, r) / float(r.abs().max()) for g, r in zip(got, ref)]
 
 
-def _bwd_bound(form, L, m, n, d):
-    """K3's least time: A, the cotangents, W and q_mu in, dA, dW, dq_mu
-    out; 6 L D M^2 N bf16 FLOP of the three products per d, plus the two
-    bf16x3 mean products (3 passes each), and the f32 prior term."""
-    mean, ssq = form == "epi", form != "qvar"
-    in_floats = (L * m * n + L * d * n + (L * n if ssq else 0) + d * m * m
-                 + ((L * d * n + m * d) if mean else 0))
-    out_floats = L * m * n + d * m * m + (m * d if mean else 0)
-    return bound(bytes_moved=4 * (in_floats + out_floats),
-                 bf16_ops=6 * L * d * m * m * n
-                 + (12 * L * m * n * d if mean else 0),
-                 f32_ops=(3 * L * m * n if ssq else 0))
-
-
 def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
     """K3 against its plain version in every form at the training shapes
     A [20,128,512] and [20,128,8192], the q-variance-only form first at a
     non-whitened step's own A (``non_white_qvar_inputs``, its main path),
     at M=100, and its determinism."""
-    qvar = hopper.qvar
+    qvar, cost = hopper.qvar, hopper.cost
     names = {"epi": ("dA", "dW", "dq_mu"), "ps": ("dA", "dW"),
              "qvar": ("dA", "dW")}
     # both sides round the same operands to bf16 into f32 products; the
@@ -834,7 +813,8 @@ def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
         ref = _bwd_call(qvar, "qvar", *args, cov, plain=True)
         errs, rels = _compare(torch, f"epilogue_bwd [{label}]", got, ref,
                               names["qvar"], tol)
-        b_ms, b_by = _bwd_bound("qvar", L_TRAIN, M, B_TRAIN, d)
+        b_ms, b_by = cost.bound(*cost.epilogue_bwd(L_TRAIN, M, B_TRAIN, d,
+                                                   "qvar"))
         cases["qvar"].append({
             "case": label, "shape": f"A [{L_TRAIN},{M},{B_TRAIN}], W "
             f"[{d},{M},{M}]", "max_abs_err": max(errs.values()),
@@ -858,7 +838,8 @@ def epilogue_bwd_phase(torch, hopper, gen, non_white) -> tuple:
                                                   False), 20)
             plain_ms = time_ms(torch, lambda: _bwd_call(qvar, form, *args,
                                                         cov, True), 3, 1)
-            b_ms, b_by = _bwd_bound(form, L_TRAIN, M, n, d)
+            b_ms, b_by = cost.bound(*cost.epilogue_bwd(L_TRAIN, M, n, d,
+                                                       form))
             cases[form].append({
                 "case": label, "shape": f"A [{L_TRAIN},{M},{n}], W "
                 f"[{d},{M},{M}]", "max_abs_err": max(errs.values()),
@@ -981,30 +962,6 @@ def _cond_inputs(torch, gen, n, m, d_in, d):
     q_mu = torch.randn((m, d), generator=gen, device="cuda")
     lq = 0.3 * torch.tril(torch.randn((d, m, m), generator=gen, device="cuda"))
     return xs, zs, var, linv, q_mu, lq
-
-
-def _k4_bound(n, d_in, m, d, sample):
-    """K4's least time: its inputs in and mean, var (and the sample) out;
-    2 N M (3 d_in + 3 M + 3 D) bf16 FLOP for the dot3 passes (three per
-    dot, on the dense Linv) and N M (M + 1) D for the single-pass
-    q-variance against tril(Lq)."""
-    in_f = n * d_in + m * d_in + 1 + m * m + m * d + d * m * m
-    out_f = n * d * 2
-    if sample:
-        in_f, out_f = in_f + n * d, out_f + n * d
-    return bound(bytes_moved=4 * (in_f + out_f),
-                 bf16_ops=(2 * n * m * (3 * d_in + 3 * m + 3 * d)
-                           + n * m * (m + 1) * d))
-
-
-def _k5_bound(n, d_in, m, d, sample, residuals):
-    """K5's least time: 2 N M (d_in + M + D) + N M (M + 1) D f32 FLOP (the
-    q-variance against tril(Lq)) against its inputs, mean and var (the
-    sample, Kxz and A where written)."""
-    in_f = n * d_in + m * d_in + 1 + m * m + m * d + d * m * m
-    out_f = n * d * (3 if sample else 2) + (2 * n * m if residuals else 0)
-    return bound(bytes_moved=4 * (in_f + out_f),
-                 f32_ops=2 * n * m * (d_in + m + d) + n * m * (m + 1) * d)
 
 
 def _k4_flip_limits(torch, ref, args, eps) -> tuple:
@@ -1153,7 +1110,7 @@ def fused_phase(torch, hopper, gen) -> tuple:
     draws; two launches with one seed bitwise equal, two seeds apart."""
     from dgps_with_iwvi_torch.ops.hopper import build
 
-    k4, k5 = hopper.serve_cond, hopper.conditional
+    k4, k5, cost = hopper.serve_cond, hopper.conditional, hopper.cost
     cases = {"serve_cond:sample": [], "serve_cond:infer": [],
              "conditional:fused": [], "conditional:sample": []}
     seed = torch.tensor(2 ** 40 + 12345, dtype=torch.int64, device="cuda")
@@ -1202,8 +1159,8 @@ def fused_phase(torch, hopper, gen) -> tuple:
                                               lambda: k4_call(with_eps))
                 case["plain_ms"] = time_ms(torch, lambda: k4_call(with_eps,
                                                                   True), 2, 1)
-                case["bound_ms"], case["bound_by"] = _k4_bound(n, d_in, m, d,
-                                                               with_eps)
+                case["bound_ms"], case["bound_by"] = cost.bound(
+                    *cost.serve_cond(n, d_in, m, d, with_eps))
                 cases[name].insert(0, case)
             else:
                 if layer == "multiclass" and not with_eps:
@@ -1213,8 +1170,8 @@ def fused_phase(torch, hopper, gen) -> tuple:
                                                   lambda: k4_call(False))
                     case["plain_ms"] = time_ms(
                         torch, lambda: k4_call(False, True), 2, 1)
-                    case["bound_ms"], case["bound_by"] = _k4_bound(
-                        n, d_in, m, d, False)
+                    case["bound_ms"], case["bound_by"] = cost.bound(
+                        *cost.serve_cond(n, d_in, m, d, False))
                 cases[name].append(case)
         for name, s in (("conditional:fused", None),
                         ("conditional:sample", seed)):
@@ -1237,8 +1194,8 @@ def fused_phase(torch, hopper, gen) -> tuple:
                 case["device_ms"] = device_ms(torch, lambda: k5_call(s, res))
                 case["plain_ms"] = time_ms(torch, lambda: k5_call(s, res,
                                                                   True), 2, 1)
-                case["bound_ms"], case["bound_by"] = _k5_bound(
-                    n, d_in, m, d, s is not None, res)
+                case["bound_ms"], case["bound_by"] = cost.bound(
+                    *cost.conditional(n, d_in, m, d, s is not None, res))
                 if is_main:
                     case["ms_with_residuals"] = time_ms(
                         torch, lambda: k5_call(s, True), 5)
@@ -1295,44 +1252,6 @@ def synthetic(seed: int = 0):
     Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((B_SERVE, 1))
          ).astype(np.float32)
     return X, Y
-
-
-def _device_rows(prof, per: int):
-    """(kernel rows, annotation rows) of a trace, each (ms per unit, calls
-    per unit, name), for events with device time. User-annotation spans
-    (record_function ranges such as ``Optimizer.step#Adam.step``) cover
-    queued work, not a kernel: they are kept apart and out of "device
-    busy"."""
-    rows, spans = [], []
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
-            row = (e.self_device_time_total / 1e3 / per, e.count / per, e.key)
-            (spans if getattr(e, "is_user_annotation", False)
-             else rows).append(row)
-    return rows, spans
-
-
-def profile_serve(torch, scorer, Xs, Ys, requests: int = 2) -> dict:
-    """Device time by kernel over `requests` scored batches (torch.profiler)
-    and the device's idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        scorer.score(Xs[:requests * B_SERVE], Ys[:requests * B_SERVE],
-                     seed=7)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, spans = _device_rows(prof, requests)
-    busy_ms = sum(r[0] for r in rows)
-    return {"requests": requests, "wall_ms_per_request": wall_ms / requests,
-            "device_ms_per_request": busy_ms,
-            "idle_share": 1.0 - busy_ms * requests / wall_ms,
-            "kernels_ms_per_request": [
-                {"kernel": k[:200], "ms": ms, "calls": c}
-                for ms, c, k in sorted(rows, reverse=True)],
-            "annotations_ms_per_request": [
-                {"span": k[:200], "ms": ms} for ms, _, k in spans]}
 
 
 def random_q(torch, params):
@@ -1414,6 +1333,7 @@ def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
     """The served model on the K2 route (``serve_pallas=False``)."""
     import dataclasses
 
+    from dgps_with_iwvi_torch.experiments import profile_step
     from dgps_with_iwvi_torch.models import predict_y_and_log_density
     from dgps_with_iwvi_torch.ops.hopper import build
     from dgps_with_iwvi_torch.params import params_to_device
@@ -1471,7 +1391,8 @@ def slice_phase(torch, model, rec: dict, profile: bool) -> dict:
             fail(f"card vs CPU path, {k}: {err} > 1e-3")
 
     if profile:
-        rec["profile"] = profile_serve(torch, scorer, Xs, Ys)
+        rec["profile"] = profile_step.profile_serve(scorer, Xs, Ys,
+                                                    B_SERVE)
     return {
         "model": "LGG d_x=8 M=128 inner width 8, random q(u) from seed 1",
         "build_s": build_s, "requests": REQUESTS, "batch": B_SERVE,
@@ -1506,6 +1427,7 @@ def pallas_serving_phase(torch, model, profile: bool) -> dict:
     With `profile`, device time by kernel over two requests per route."""
     import dataclasses
 
+    from dgps_with_iwvi_torch.experiments import profile_step
     from dgps_with_iwvi_torch.ops.hopper import build
     from dgps_with_iwvi_torch.serving import Scorer
 
@@ -1555,7 +1477,7 @@ def pallas_serving_phase(torch, model, profile: bool) -> dict:
                                 / (1.0 + np.abs(default[k]))))
                 for k in ("mean", "var", "log_density")}
         if profile:
-            prof = profile_serve(torch, scorer, Xs, Ys)
+            prof = profile_step.profile_serve(scorer, Xs, Ys, B_SERVE)
             prof["idle_share_vs_unprofiled_wall"] = (
                 1.0 - prof["device_ms_per_request"] * REQUESTS
                 / (serve_s * 1e3))
@@ -1683,34 +1605,6 @@ def _steps_per_s(torch, step, state, X, Y, gen, steps):
     return state, steps / (time.perf_counter() - t0), losses
 
 
-def profile_train(torch, step, state, X, Y, gen, steps: int = 5) -> dict:
-    """Device time by kernel over `steps` training steps (torch.profiler)
-    and the device's idle share of their wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step(state, X, Y, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, spans = _device_rows(prof, steps)
-    busy_ms = sum(r[0] for r in rows)
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms * steps / wall_ms,
-            "kernel_launches_per_step": launches / steps,
-            "kernels_ms_per_step": [
-                {"kernel": k[:200], "ms": ms, "calls": c}
-                for ms, c, k in sorted(rows, reverse=True)[:40]],
-            "annotations_ms_per_step": [
-                {"span": k[:200], "ms": ms} for ms, _, k in spans]}
-
-
 def flagship_model(torch):
     """(config, params, X, Y): the flagship LGG (IW K=20, M=128) built from
     seed 0 on synthetic data of kin8nm's shape, with a random q(u) away
@@ -1739,6 +1633,7 @@ def train_phase(torch, card: str, profile: bool) -> dict:
     import dataclasses
 
     from dgps_with_iwvi_torch import training as train
+    from dgps_with_iwvi_torch.experiments import profile_step
     from dgps_with_iwvi_torch.ops.hopper import build
 
     config, params, X, Y = flagship_model(torch)
@@ -1777,7 +1672,8 @@ def train_phase(torch, card: str, profile: bool) -> dict:
            "steps_per_s_b512": rate, "launches": counts,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
     if profile:
-        rec["profile_b512"] = profile_train(torch, step, state, X, Y, gen)
+        rec["profile_b512"] = profile_step.profile_train(step, state, X, Y,
+                                                         gen)
     rec["use_pallas"] = _pallas_train(torch, train, build, config, params, X,
                                       Y, tc, idx)
 
@@ -1805,8 +1701,8 @@ def train_phase(torch, card: str, profile: bool) -> dict:
                 "peak_mem_gib_b8192":
                 torch.cuda.max_memory_allocated() / 2 ** 30})
     if profile:
-        rec["profile_b8192"] = profile_train(torch, step_b, state_b, Xb, Yb,
-                                             gen, steps=3)
+        rec["profile_b8192"] = profile_step.profile_train(
+            step_b, state_b, Xb, Yb, gen, steps=3)
     print(f"train: {rate:.1f} steps/s at B={B_TRAIN}, {rate_big:.2f} "
           f"steps/s at B={B_BIG} (LGG IW K={L_TRAIN} M={M}, natgrad final) "
           f"on {card}")
@@ -3633,6 +3529,7 @@ def _graph_train_case(torch, train, build, model, label, batch, fields,
     rate (``utils.flops``)."""
     import dataclasses
 
+    from dgps_with_iwvi_torch.experiments import profile_step
     from dgps_with_iwvi_torch.utils import flops
 
     config, params, X, Y = model
@@ -3727,9 +3624,8 @@ def _graph_train_case(torch, train, build, model, label, batch, fields,
            "first_chunk_steps": steps,
            "leaves_compared": len(leaves[0])}
     if profile:
-        rec["profile_graph"] = _profile_chunk(torch, fns["graph"],
-                                              state["graph"], X, Y,
-                                              gens["graph"], steps)
+        rec["profile_graph"] = profile_step.profile_chunk(
+            fns["graph"], state["graph"], X, Y, gens["graph"], steps)
     return rec
 
 
@@ -3740,28 +3636,6 @@ def _state_leaves(state) -> list:
     opt = state.opt_state.state_dict()["state"]
     return (train._leaves(state.rest) + train._leaves(state.natvars)
             + [t for s in opt.values() for t in s.values()])
-
-
-def _profile_chunk(torch, chunk, state, X, Y, gen, steps) -> dict:
-    """Device time by kernel over one graphed chunk (torch.profiler) and
-    the device's idle share of its wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chunk(state, X, Y, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, spans = _device_rows(prof, steps)
-    busy_ms = sum(r[0] for r in rows)
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms * steps / wall_ms,
-            "kernels_ms_per_step": [
-                {"kernel": k[:200], "ms": ms, "calls": c}
-                for ms, c, k in sorted(rows, reverse=True)[:40]]}
 
 
 def _graph_serve_case(torch, serving, build, model, label, fields,
@@ -4324,6 +4198,139 @@ def iw_vs_vi_phase(torch, card: str) -> dict:
             "launches_per_run": {"train": pin_train, "eval": pin_eval}}
 
 
+# phase 15: the reference's measurement tools, ported
+# (experiments.profile_step, roofline, peak_probe, predict_bench)
+MEASURE_STEPS, MEASURE_CALLS, MEASURE_EAGER = 20, 2, 3
+MEASURE_STEP_WANT = {"chol_inv": 2, "epilogue:epi": 2, "epilogue_bwd:epi": 2}
+MEASURE_BOUND_SLACK = 1.05   # a row faster than bound / 1.05 counts wrong
+
+
+def _step_work(cost, config, tc) -> dict:
+    """{kernel: [bytes, bf16 ops, f32 ops, bound ms]} of one flagship step
+    from its shapes, the bound the sum of each launch's: K1 on the GP
+    layers' Kuu grams (their jitter ladder) and on natgrad's P [D, M, M]
+    of the final layer (two levels, ``training/natgrad.py``), K2 and K3
+    'epi' per GP layer on A [K, M, B]."""
+    from dgps_with_iwvi_torch.models.layers import GPLayerConfig
+
+    gps = [c for c in config.layers if isinstance(c, GPLayerConfig)]
+    m, k, b = gps[0].num_inducing, config.num_iw_samples, tc.minibatch_size
+
+    def total(works):
+        return [sum(w[i] for w in works) for i in range(3)] + [
+            sum(cost.bound(*w)[0] for w in works)]
+
+    return {"chol_inv": total([cost.chol_inv(len(gps), m,
+                                             config.jitter_tries),
+                               cost.chol_inv(gps[-1].d_out, m, 2)]),
+            "epilogue": total([cost.epilogue(k, m, b, c.d_out, "epi")
+                               for c in gps]),
+            "epilogue_bwd": total([cost.epilogue_bwd(k, m, b, c.d_out, "epi")
+                                   for c in gps])}
+
+
+def _exact_counts(counts: dict, tool: str, steps: int) -> None:
+    """Fail unless `counts` are MEASURE_STEP_WANT per step over `steps`."""
+    want = {k: v * steps for k, v in MEASURE_STEP_WANT.items()}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"measure: {tool} launched {got} in {steps} steps, want {want}")
+
+
+def measure_phase(torch, card: str, tmp: str) -> dict:
+    """15. measure: ``profile_step`` at B=512 (graphed; the hand kernels'
+    launches per replay equal to the step's), ``roofline`` at B=512 (every
+    hand-kernel row's bytes and operations equal to cost.py's for the
+    step's shapes, none faster than its bound allows), ``peak_probe``
+    --quick (no reading past 105% of the data sheet) and ``predict_bench``
+    at B=8192 (3 rounds, finite outputs); launches counted per tool."""
+    from dgps_with_iwvi_torch.experiments import (peak_probe, predict_bench,
+                                                  profile_step, roofline)
+    from dgps_with_iwvi_torch.ops.hopper import build, cost
+
+    t0 = time.perf_counter()
+    setup = profile_step.flagship(B_TRAIN, MEASURE_STEPS, "cuda")
+    config, tc = setup[0], setup[4]
+    launches = {}
+
+    seconds = {"setup": time.perf_counter() - t0}
+    build.reset_launches()
+    prof = profile_step.run(calls=MEASURE_CALLS, setup=setup)
+    launches["measure_profile"] = _path_counts(build)
+    seconds["profile_step"] = time.perf_counter() - t0 - sum(seconds.values())
+    per_step = {k: v["launches"]
+                for k, v in prof["hand_kernels_per_step"].items()}
+    if per_step != MEASURE_STEP_WANT:
+        fail(f"measure: profile_step's hand-kernel launches per replayed "
+             f"step {per_step}, want {MEASURE_STEP_WANT}")
+    _exact_counts(launches["measure_profile"], "profile_step",
+                  (2 + MEASURE_CALLS) * MEASURE_STEPS)
+
+    build.reset_launches()
+    roof = roofline.run(B_TRAIN, eager_steps=MEASURE_EAGER, top=30,
+                        setup=setup, graphed=prof)
+    launches["measure_roofline"] = _path_counts(build)
+    seconds["roofline"] = time.perf_counter() - t0 - sum(seconds.values())
+    _exact_counts(launches["measure_roofline"], "roofline",
+                  3 * MEASURE_EAGER)
+    want = _step_work(cost, config, tc)
+    hand = {r["hand"]: r for r in roof["rows"] if r["hand"]}
+    if set(hand) != set(want):
+        fail(f"measure: roofline's hand-kernel rows {sorted(hand)}, want "
+             f"{sorted(want)}")
+    for name, (b, bf16, f32, b_ms) in want.items():
+        r = hand[name]
+        if not (math.isclose(r["bytes"], b, rel_tol=1e-12)
+                and math.isclose(r["flops"], bf16 + f32, rel_tol=1e-12)
+                and math.isclose(r["attainable_us"], 1e3 * b_ms,
+                                 rel_tol=1e-12)):
+            fail(f"measure: roofline's {name} row moves {r['bytes']} bytes, "
+                 f"does {r['flops']} operations and is bound at "
+                 f"{r['attainable_us']} us per step; cost.py gives {b}, "
+                 f"{bf16 + f32} and {1e3 * b_ms} (its launches' bounds "
+                 "summed) for the step's shapes")
+        if r["us"] * MEASURE_BOUND_SLACK < r["attainable_us"]:
+            fail(f"measure: {name} reads {r['us']:.2f} us per step, faster "
+                 f"than its bound {r['attainable_us']:.2f} us allows: "
+                 "cost.py counts wrong")
+
+    lists = [r for r in roof["rows"] if "_foreach_" in r["op"]]
+    if roof["unresolved_tensor_lists"] or not lists \
+            or not all(r["bytes"] > 0 for r in lists):
+        fail(f"measure: the optimizer's foreach rows "
+             f"{[(r['op'], r['bytes']) for r in lists]} and "
+             f"{roof['unresolved_tensor_lists']} op calls with a tensor "
+             "list unresolved: every list must count its bytes")
+
+    peaks = peak_probe.probe("cuda", quick=True)
+    seconds["peak_probe"] = time.perf_counter() - t0 - sum(seconds.values())
+    bad = peak_probe.check(peaks)
+    if bad:
+        fail("measure: peak_probe reads past 105% of the data sheet: "
+             + "; ".join(bad))
+
+    build.reset_launches()
+    serve = predict_bench.run(out_dir=tmp, batches=[B_SERVE], rounds=3)
+    launches["measure_predict"] = _path_counts(build)
+    seconds["predict_bench"] = time.perf_counter() - t0 - sum(seconds.values())
+    if not serve["finite"]:
+        fail("measure: predict_bench scored a value that is not finite")
+    for line in (profile_step.report(prof)[:2] + roof["lines"][-1:]
+                 + peak_probe.report(peaks)):
+        print(f"measure: {line}")
+    row = serve["rows"][0]
+    print(f"measure: predict_bench B={B_SERVE}: {row['blocking_ms']:.2f} ms "
+          f"blocking, {row['points_per_s_pipelined']:,.0f} points/s "
+          f"pipelined, artifact {serve['artifact_points_per_s']:,.0f} "
+          f"points/s; on {card}")
+    print("measure: seconds " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
+    return {"profile_step": prof, "seconds": seconds,
+            "roofline": {k: v for k, v in roof.items() if k != "lines"},
+            "peaks": peaks, "predict_bench": serve, "launches": launches,
+            "phase_s": time.perf_counter() - t0}
+
+
 def _parent_libs(hopper, build, parent: str) -> dict:
     """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
@@ -4619,6 +4626,8 @@ def main() -> int:
         rec["iw_vs_vi"] = iw_vs_vi_phase(torch, card)
         rec["iw_vs_vi"]["phase_s"] = time.perf_counter() - t0
         print(f"iw_vs_vi: phase 14 took {rec['iw_vs_vi']['phase_s']:.1f} s")
+        rec["measure"] = measure_phase(torch, card, tmp)
+        print(f"measure: phase 15 took {rec['measure']['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -4661,7 +4670,8 @@ def main() -> int:
                 if "turns" in r
                 for i, t in enumerate(r["turns"])},
              **rec["gate"]["launches"],
-             **rec["iw_vs_vi"]["launches"]}
+             **rec["iw_vs_vi"]["launches"],
+             **rec["measure"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -4693,6 +4703,7 @@ def main() -> int:
     print("graphs: " + json.dumps(rec["graphs"]))
     print("gate: " + json.dumps(rec["gate"]))
     print("iw_vs_vi: " + json.dumps(rec["iw_vs_vi"]))
+    print("measure: " + json.dumps(rec["measure"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

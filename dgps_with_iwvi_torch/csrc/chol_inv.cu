@@ -45,7 +45,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+// The device functions live in a namespace named for the kernel, so
+// that a profiler's rows name it (SYMBOLS in ops/hopper/cost.py).
+namespace k1_chol_inv {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -324,7 +326,9 @@ chol_inv_global(const float* __restrict__ K,
       }
 }
 
-}  // namespace
+}  // namespace k1_chol_inv
+
+using namespace k1_chol_inv;
 
 extern "C" {
 

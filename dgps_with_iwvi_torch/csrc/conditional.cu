@@ -61,7 +61,9 @@
 
 #include <algorithm>
 
-namespace {
+// The device functions live in a namespace named for the kernel, so
+// that a profiler's rows name it (SYMBOLS in ops/hopper/cost.py).
+namespace k5_conditional {
 
 constexpr int kThreads = 256;
 constexpr int kNC = 128;           // columns per output chunk
@@ -495,7 +497,9 @@ cudaError_t launch(const float* xs, const float* var, const float* S,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace k5_conditional
+
+using namespace k5_conditional;
 
 extern "C" {
 

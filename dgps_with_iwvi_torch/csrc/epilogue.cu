@@ -71,7 +71,9 @@
 
 #include <algorithm>
 
-namespace {
+// The device functions live in a namespace named for the kernel, so
+// that a profiler's rows name it (SYMBOLS in ops/hopper/cost.py).
+namespace k2_epilogue {
 
 typedef __nv_bfloat16 bf16;
 
@@ -725,7 +727,9 @@ epilogue_kernel(const float* __restrict__ A, const bf16* __restrict__ wop,
   }
 }
 
-}  // namespace
+}  // namespace k2_epilogue
+
+using namespace k2_epilogue;
 
 extern "C" {
 

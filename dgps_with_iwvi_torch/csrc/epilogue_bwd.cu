@@ -50,7 +50,9 @@
 
 #include <algorithm>
 
-namespace {
+// The device functions live in a namespace named for the kernel, so
+// that a profiler's rows name it (SYMBOLS in ops/hopper/cost.py).
+namespace k3_epilogue_bwd {
 
 typedef __nv_bfloat16 bf16;
 
@@ -750,7 +752,9 @@ Layout layout(int L, int M, int N, int D, int with_mean) {
   return s;
 }
 
-}  // namespace
+}  // namespace k3_epilogue_bwd
+
+using namespace k3_epilogue_bwd;
 
 extern "C" {
 

@@ -57,7 +57,9 @@
 
 #include <algorithm>
 
-namespace {
+// The device functions live in a namespace named for the kernel, so
+// that a profiler's rows name it (SYMBOLS in ops/hopper/cost.py).
+namespace k4_serve_cond {
 
 typedef __nv_bfloat16 bf16;
 
@@ -688,7 +690,9 @@ wide_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
   }
 }
 
-}  // namespace
+}  // namespace k4_serve_cond
+
+using namespace k4_serve_cond;
 
 extern "C" {
 

@@ -14,9 +14,16 @@ launches and nowhere else, so a caller can show that a run went through
 the kernel (``reset_launches`` / ``launches``). A wrapper that launches
 one variant of a kernel (the epilogue with or without its mean, say) also
 names the variant, counted under ``"<kernel>:<variant>"`` by
-``variant_launches``. While a CUDA graph captures (``capturing``), a
-launch is recorded into the graph's tally instead, since a capture runs
-nothing; ``replayed`` adds the tally once per replay of the graph.
+``variant_launches``. A wrapper also hands over its call's work
+(``cost.Work``: bytes and operations from its shapes), summed per
+kernel and variant by ``launch_costs`` with each launch's bound
+(``cost.bound``): launches run one after another, so the bound of a
+window is the sum of its launches' bounds, not the bound of their summed
+work. While a CUDA graph captures
+(``capturing``), a launch and its work are recorded into the graph's
+tally instead, since a capture runs nothing; ``replayed`` adds the tally
+once per replay of the graph. All of this is host arithmetic at a launch
+or a capture; a replay adds a tally and nothing else.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from . import cost
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -40,6 +49,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _launches = {name: 0 for name in KERNELS}
 _variant_launches: dict = {}
+# {"<kernel>" or "<kernel>:<variant>": [launches, bytes, bf16 ops, f32 ops,
+# bound ms, the part of it of launches bound by operations]} of the
+# launches that handed their work over
+COST_FIELDS = ("launches", "bytes", "bf16_ops", "f32_ops", "bound_ms",
+               "ops_bound_ms")
+_costs: dict = {}
 # tallies of the CUDA graphs being captured, innermost last; a list that
 # every thread sees, since autograd's device thread launches the backward
 _captures: list = []
@@ -78,6 +93,7 @@ def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
     _variant_launches.clear()
+    _costs.clear()
 
 
 def launches() -> dict:
@@ -90,14 +106,38 @@ def variant_launches() -> dict:
     return dict(_variant_launches)
 
 
-def count_launch(name: str, variant: str | None = None) -> None:
+def launch_costs() -> dict:
+    """{"<kernel>" or "<kernel>:<variant>": {"launches", "bytes",
+    "bf16_ops", "f32_ops", "bound_ms", "ops_bound_ms"}} summed over the
+    launches since the last reset_launches() that handed over their work
+    (``cost.Work``): each launch adds its work, its bound (``cost.bound``)
+    and, where operations bound it, that bound again."""
+    return {key: dict(zip(COST_FIELDS, v)) for key, v in _costs.items()}
+
+
+def count_launch(name: str, variant: str | None = None, work=None) -> None:
+    """Count one launch of kernel `name` (and of its `variant`), with the
+    call's work (``cost.Work``) where given."""
     keys = [name] if variant is None else [name, f"{name}:{variant}"]
+    if work is not None:
+        ms, by = cost.bound(*work)
+        work = (1, *work, ms, ms if by == "operations" else 0.0)
     if _captures:
         tally = _captures[-1]
         for key in keys:
             tally[key] = tally.get(key, 0) + 1
+        if work is not None:
+            _add_work(tally.costs, keys[-1], work)
         return
     _add({key: 1 for key in keys})
+    if work is not None:
+        _add_work(_costs, keys[-1], work)
+
+
+def _add_work(costs: dict, key: str, values) -> None:
+    acc = costs.setdefault(key, [0] + [0.0] * (len(COST_FIELDS) - 1))
+    for i, v in enumerate(values):
+        acc[i] += v
 
 
 def _add(tally: dict) -> None:
@@ -108,23 +148,36 @@ def _add(tally: dict) -> None:
             _launches[key] += n
 
 
+class Tally(dict):
+    """A capture's launches {kernel or "<kernel>:<variant>": launches},
+    with their work in ``costs`` (keyed as ``launch_costs``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.costs: dict = {}
+
+
 @contextlib.contextmanager
 def capturing():
     """Inside this block (a CUDA graph's capture) a launch is recorded,
-    not counted: yields the tally {kernel or "<kernel>:<variant>":
-    launches}, which ``replayed`` adds once per replay."""
-    tally: dict = {}
+    not counted: yields the ``Tally``, which ``replayed`` adds once per
+    replay."""
+    tally = Tally()
     _captures.append(tally)
     try:
         yield tally
     finally:
-        _captures.remove(tally)
+        # by identity: two tallies may hold equal counts
+        del _captures[next(i for i, t in enumerate(_captures)
+                           if t is tally)]
 
 
-def replayed(tally: dict) -> None:
-    """Count the launches of one replay of a graph whose capture recorded
-    `tally`."""
+def replayed(tally: Tally) -> None:
+    """Count the launches, and their work, of one replay of a graph whose
+    capture recorded `tally`."""
     _add(tally)
+    for key, values in tally.costs.items():
+        _add_work(_costs, key, values)
 
 
 def _nvcc() -> str:

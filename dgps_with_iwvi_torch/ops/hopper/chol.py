@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 NAME = "chol_inv"
 
@@ -72,6 +72,6 @@ def chol_inv(K: torch.Tensor, jitters: torch.Tensor):
                               Linv.data_ptr(), g, t, m, K.device.index or 0,
                               stream)
     build.check(lib, NAME, err)
-    build.count_launch(NAME)
+    build.count_launch(NAME, work=cost.chol_inv(g, m, t))
     shape = (t,) + tuple(batch) + (m, m)
     return L.reshape(shape), Linv.reshape(shape)

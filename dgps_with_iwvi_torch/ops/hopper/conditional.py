@@ -40,7 +40,7 @@ import math
 import torch
 
 from .. import precision
-from . import build
+from . import build, cost
 
 NAME = "conditional"
 
@@ -176,7 +176,9 @@ def _launch(xs, zs, var, linv, q_mu, lq, seed, residuals: bool):
         _ptr(kxz), _ptr(a), _ptr(scratch), n, d_in, m, d,
         xs.device.index or 0, stream)
     build.check(lib, NAME, err)
-    build.count_launch(NAME, "sample" if seed is not None else "fused")
+    sample = seed is not None
+    build.count_launch(NAME, "sample" if sample else "fused",
+                       cost.conditional(n, d_in, m, d, sample, residuals))
     return mean, v, samp, kxz, a
 
 

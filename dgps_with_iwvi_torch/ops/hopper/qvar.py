@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from .. import precision
-from . import build
+from . import build, cost
 
 NAME = "epilogue"
 
@@ -188,8 +188,8 @@ def _launch(A, W, q_mu, cov: bool, with_ss: bool):
                               _ptr(ss), _ptr(mean), _ptr(wop), L, m, n, d,
                               int(cov), A.device.index or 0, stream)
     build.check(lib, NAME, err)
-    build.count_launch(NAME, "epi" if q_mu is not None
-                       else "ps" if with_ss else "qvar")
+    form = "epi" if q_mu is not None else "ps" if with_ss else "qvar"
+    build.count_launch(NAME, form, cost.epilogue(L, m, n, d, form))
     qv = qv.reshape(lead + (d, n))
     ss = ss.reshape(lead + (n,)) if with_ss else None
     mean = mean.reshape(lead + (d, n)) if mean is not None else None
@@ -258,8 +258,9 @@ def _launch_bwd(A, W, q_mu, g_qv, g_ss, g_mn, cov: bool):
         _ptr(dW), _ptr(dq), _ptr(scratch), L, m, n, d, int(cov),
         A.device.index or 0, stream)
     build.check(lib, BWD_NAME, err)
-    build.count_launch(BWD_NAME, "epi" if q_mu is not None
-                       else "ps" if g_ss is not None else "qvar")
+    form = ("epi" if q_mu is not None else "ps" if g_ss is not None
+            else "qvar")
+    build.count_launch(BWD_NAME, form, cost.epilogue_bwd(L, m, n, d, form))
     return dA.reshape(A.shape), dW, dq
 
 

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from .. import precision
-from . import build
+from . import build, cost
 from .conditional import _check_inputs, _f32, _ptr
 
 NAME = "serve_cond"
@@ -84,7 +84,9 @@ def _launch(xs, zs, var, linv, q_mu, lq, eps):
         *(_ptr(t) for t in ins), _ptr(eps), _ptr(mean), _ptr(v), _ptr(samp),
         _ptr(scratch), n, d_in, m, d, xs.device.index or 0, stream)
     build.check(lib, NAME, err)
-    build.count_launch(NAME, "sample" if eps is not None else "infer")
+    sample = eps is not None
+    build.count_launch(NAME, "sample" if sample else "infer",
+                       cost.serve_cond(n, d_in, m, d, sample))
     return (mean, v) if eps is None else (samp, mean, v)
 
 

@@ -74,10 +74,15 @@ from ..models.layers import GPLayerConfig, LVLayerConfig, \
 from ..ops import kernels
 from ..ops.precision import CLASSES
 
-# dense peaks by torch.cuda.get_device_name: (bf16 tensor core, f32 CUDA
-# core), FLOP/s; NVIDIA's H100 SXM5 data sheet values (PERF.md section 3)
+# the one table of the card's peaks, by torch.cuda.get_device_name: dense
+# (bf16 tensor core, f32 CUDA core) FLOP/s, and device memory bytes/s;
+# NVIDIA's H100 SXM5 data sheet values (PERF.md section 3). The kernels'
+# bounds (``ops.hopper.cost``), the roofline and chip_smoke.py read it.
 PEAK_FLOPS = {
     "NVIDIA H100 80GB HBM3": (989e12, 67e12),
+}
+PEAK_BYTES = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
 # the card whose peaks weigh the adjusted count
 CARD = "NVIDIA H100 80GB HBM3"

@@ -22,6 +22,7 @@ import pytest
 from dgps_with_iwvi_torch.evaluation import Database
 from dgps_with_iwvi_torch.experiments import baseline_configs as bc
 from dgps_with_iwvi_torch.experiments import render_suite as rs
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks")

@@ -32,6 +32,7 @@ from dgps_with_iwvi_torch.experiments import iw_vs_vi as ivv
 from dgps_with_iwvi_torch.models import BuildArgs, LVLayerConfig, build_config
 from dgps_with_iwvi_tpu.models import BuildArgs as JBuildArgs
 from dgps_with_iwvi_tpu.models import build_model as jbuild_model
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SCRIPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks", "iw_vs_vi.py")

@@ -26,6 +26,7 @@ from dgps_with_iwvi_torch.evaluation import metrics
 from dgps_with_iwvi_torch.experiments import quality_gate as qg
 from dgps_with_iwvi_torch.ops import kernels
 from dgps_with_iwvi_torch.utils import graphs
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks")
