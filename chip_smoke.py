@@ -203,20 +203,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    only, 3 rounds, every scored value finite. Launches exact per tool
    (kernels line paths ``measure_profile``, ``measure_roofline``,
    ``measure_predict``).
+16. mesh gate: ``experiments.quality_gate.main --mesh 2x5 --quick`` on
+   LG-energy natgrad (K=5, one sample per 'k' rank, 256 rows per 'dp'
+   rank; 500 steps, tolerances 0.2 and 0.5): seeds 0 and 1 graphed in
+   this process, then ten ranks spawned on cuda:0 (gloo through a file
+   store) training through ``fit(mesh=)`` eagerly, rank 0 measuring. One
+   line with the verdict, both gaps, seconds and steps/s per side; fails
+   on a FAIL, a non-finite loss, a rank that fails or outlasts the gate's
+   deadline, replicas not bitwise equal, or launches other than the
+   candidate's of phase 13 (``_gate_want``: K1 twice per step and once
+   more, K2/K3 'epi' once per step) on each single-device run and on
+   rank 0 (which also measures), and the training's alone on every other
+   rank (kernels line paths ``mesh_gate_single`` and
+   ``mesh_gate_rank0`` .. ``mesh_gate_rank9``).
 
 ``fit``, ``Scorer`` and ``evaluate`` replay CUDA graphs on the card, so
 phases 4, 6-9 and 11 (and phase 7's live path) run graphed, with their
-launch gates unchanged; phase 5 times ``step_fn`` eagerly and phase 10's
-``fit(mesh=)`` and ``evaluate(mesh=)`` stay eager. Phase 7 also prints
-the card's busy share of a batch of ``ServingArtifact.score`` (the device
-time of one program call against the wall time per batch).
+launch gates unchanged; phase 5 times ``step_fn`` eagerly, and phases
+10's and 16's ``fit(mesh=)`` and phase 10's ``evaluate(mesh=)`` stay
+eager. Phase 7 also prints the card's busy share of a batch of
+``ServingArtifact.score`` (the device time of one program call against
+the wall time per batch).
 
 Prints one ``{"kernels": [...]}`` line (launches counted on every path
-above, by path; phase 10's by rank), then the card's name and power limit, then
-``{"ok": true, "device": {...}}`` as the last line. Exits
-non-zero without a result where CUDA is unavailable or the package is not
-beside this script. ``--out DIR`` also writes the whole record to
-``DIR/chip_smoke.json``.
+above, by path; phases 10's and 16's by rank), then the card's name and
+power limit, then ``{"ok": true, "device": {...}}`` as the last line.
+Exits non-zero without a result where CUDA is unavailable or the
+package is not beside this script. ``--out DIR`` also writes the whole
+record to ``DIR/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -3199,20 +3213,16 @@ def parallel_phase(torch, card: str, tmp: str) -> dict:
     collectives through the host); each runs the checks of
     ``_parallel_rank``. Fails if a rank fails, exits non-zero or outlasts
     PARALLEL_TIMEOUT_S."""
-    import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
 
+    from dgps_with_iwvi_torch.parallel import launch
+
     torch.cuda.empty_cache()
-    ctx = mp.start_processes(_parallel_rank, args=(PARALLEL_RANKS, tmp),
-                             nprocs=PARALLEL_RANKS, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
     try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                fail(f"parallel: the ranks ran past {PARALLEL_TIMEOUT_S} s")
+        launch.spawn_ranks(_parallel_rank, PARALLEL_RANKS, tmp,
+                           timeout_s=PARALLEL_TIMEOUT_S)
+    except TimeoutError:
+        fail(f"parallel: the ranks ran past {PARALLEL_TIMEOUT_S} s")
     except ProcessException as e:
         fail(f"parallel: a rank failed: {e}")
     ranks = []
@@ -4331,6 +4341,105 @@ def measure_phase(torch, card: str, tmp: str) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# phase 16: the sharded trainer's gate, --quick, on the reference's mesh
+MESH_GATE = (2, 5)                        # (n_dp, n_k): 10 ranks on cuda:0
+MESH_GATE_CONFIG = "LG-energy natgrad"
+
+
+def _hand_counts(launches: dict) -> dict:
+    """A rank's record of launches (by kernel and by variant) as
+    ``_path_counts`` gives them."""
+    return {k: v for k, v in launches.items() if k == "chol_inv" or ":" in k}
+
+
+def mesh_gate_phase(torch, card: str, tmp: str) -> dict:
+    """16. mesh gate: ``quality_gate.main(["--mesh", "2x5", "--quick"])``
+    on LG-energy natgrad: both single-device seeds graphed in this
+    process, the ten ranks eager on cuda:0 (gloo through the host). Fails
+    on a FAIL, a non-finite loss, a rank that fails or outlasts the gate's
+    deadline, replicas that differ, or launches that differ from
+    ``_gate_want``'s: per single-device run and on rank 0 the candidate's
+    (training and measurement), on every other rank the training's
+    alone."""
+    from torch.multiprocessing.spawn import ProcessException
+
+    from dgps_with_iwvi_torch.data import get_regression_data
+    from dgps_with_iwvi_torch.experiments import quality_gate as qg
+    from dgps_with_iwvi_torch.ops.hopper import build
+
+    gc = next(g for g in qg.GATE_CONFIGS if g[0] == MESH_GATE_CONFIG)
+    n_test = get_regression_data(gc[1], 0).X_test.shape[0]
+    singles = []
+    run_setting = qg.run_setting
+
+    def counted(*gc_, **kw):
+        build.reset_launches()
+        out = run_setting(*gc_, **kw)
+        counts = {k: v for k, v in _path_counts(build).items() if v}
+        want = _gate_want(gc_, kw["iterations"], n_test, False)
+        if counts != want:
+            fail(f"mesh gate: single-device seed {kw.get('seed', 0)}: "
+                 f"launches {counts}, want {want}")
+        singles.append(counts)
+        return out
+
+    dp, k = MESH_GATE
+    t0 = time.perf_counter()
+    qg.run_setting = counted
+    try:
+        verdict = qg.main(["--mesh", f"{dp}x{k}", "--mesh_config",
+                           MESH_GATE_CONFIG, "--quick", "--out",
+                           os.path.join(tmp, "gate")])
+    except TimeoutError as e:
+        fail(f"mesh gate: {e}")
+    except ProcessException as e:
+        fail(f"mesh gate: a rank failed: {e}")
+    finally:
+        qg.run_setting = run_setting
+    seconds = time.perf_counter() - t0
+    row = verdict["rows"][0]
+    steps = verdict["iterations"]
+    train = _gate_want(gc, steps, n_test, False)
+    train["chol_inv"] -= 8 + -(-n_test // EVAL_BATCH)   # rank 0 measures
+    ranks = {}
+    for r in row["ranks"]:
+        got = _hand_counts(r["launches"])
+        want = (_gate_want(gc, steps, n_test, False) if r["rank"] == 0
+                else train)
+        if got != want:
+            fail(f"mesh gate: rank {r['rank']}: launches {got}, want {want}")
+        if not r["finite"]:
+            fail(f"mesh gate: rank {r['rank']} saw a loss that is not "
+                 "finite")
+        ranks[f"mesh_gate_rank{r['rank']}"] = got
+    if len(ranks) != dp * k:
+        fail(f"mesh gate: {len(ranks)} ranks reported, want {dp * k}")
+    if not row["replicas_bitwise_equal"]:
+        fail("mesh gate: the ranks' trained parameters differ: "
+             + json.dumps([r["digest"] for r in row["ranks"]]))
+    if not verdict["backend"].startswith(
+            "gloo, " + torch.cuda.get_device_name(0)):
+        fail(f"mesh gate: ran on {verdict['backend']!r}, not gloo on the "
+             "card")
+    print(f"mesh gate: {dp}x{k} {MESH_GATE_CONFIG}: "
+          f"{'PASS' if verdict['pass'] else 'FAIL'} dELBO rel "
+          f"{row['d_elbo_rel']:.3e} (tol {row['tol_elbo_rel']:.3e}), dNLL "
+          f"{row['d_nll']:.4f} (tol {row['tol_nll']:.4f}), {seconds:.1f} s; "
+          f"steps/s single {row['steps_per_s_single']:.1f}, "
+          f"{row['steps_per_s_single_seed1']:.1f} (graphed), mesh "
+          f"{row['steps_per_s_mesh']:.1f} ({dp * k} gloo ranks eager on "
+          f"cuda:0, time-sliced: not a scaling figure); {steps} steps; "
+          f"replicas bitwise equal; finite {row['finite']}; on {card}")
+    if not verdict["pass"]:
+        fail("mesh gate: FAIL")
+    single = {}
+    for counts in singles:
+        for key, v in counts.items():
+            single[key] = single.get(key, 0) + v
+    return {"verdict": verdict, "seconds": seconds,
+            "launches": {"mesh_gate_single": single, **ranks}}
+
+
 def _parent_libs(hopper, build, parent: str) -> dict:
     """K1's to K5's libraries of the tree at `parent`, each
     built by its own nvcc from that tree's csrc/ into this tree's build
@@ -4628,6 +4737,9 @@ def main() -> int:
         print(f"iw_vs_vi: phase 14 took {rec['iw_vs_vi']['phase_s']:.1f} s")
         rec["measure"] = measure_phase(torch, card, tmp)
         print(f"measure: phase 15 took {rec['measure']['phase_s']:.1f} s")
+        rec["mesh_gate"] = mesh_gate_phase(torch, card, tmp)
+        print(f"mesh gate: phase 16 took {rec['mesh_gate']['seconds']:.1f} "
+              "s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if opts.profile:
@@ -4671,7 +4783,8 @@ def main() -> int:
                 for i, t in enumerate(r["turns"])},
              **rec["gate"]["launches"],
              **rec["iw_vs_vi"]["launches"],
-             **rec["measure"]["launches"]}
+             **rec["measure"]["launches"],
+             **rec["mesh_gate"]["launches"]}
     for k in (k1, *k2, *k3, *k45):
         by_path = {p: counts.get(k["name"], 0) for p, counts in paths.items()}
         k["launches"] = sum(by_path.values())
@@ -4704,6 +4817,7 @@ def main() -> int:
     print("gate: " + json.dumps(rec["gate"]))
     print("iw_vs_vi: " + json.dumps(rec["iw_vs_vi"]))
     print("measure: " + json.dumps(rec["measure"]))
+    print("mesh gate: " + json.dumps(rec["mesh_gate"]))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "chip_smoke.json"), "w") as f:

@@ -37,15 +37,25 @@ Writes ``<out>.json`` and ``<out>.md`` (``--out``, default
 and columns, plus seconds and steps/s per run; the ``backend`` field
 holds the card's name and power limit. The exit code is 0 only on a PASS.
 
+``--mesh DPxK`` gates the sharded trainer instead (reference
+l.138-209, ``run_mesh_gate``): ``--mesh_config`` (default LG-energy
+natgrad) trains at seeds 0 and 1 in this process and through
+``fit(mesh=)`` on dp x k spawned ranks, all at the production defaults
+and minibatch 512; the mesh run must land within the single-device seed
+band. It writes ``<out>_mesh.json`` and ``<out>_mesh.md``.
+
+    python -m dgps_with_iwvi_torch.experiments.quality_gate --mesh 2x5
+    python -m dgps_with_iwvi_torch.experiments.quality_gate --mesh 2x1 \
+        --quick --device cpu                   # two gloo ranks on the CPU
+
 Not ported, by design: the TPU switches ``--qvar_bf16_residual``,
 ``--qvar_pallas_train``, ``--epi_pallas``, ``--epi_train`` and
 ``--kuf_bf16`` (the port has no such knobs: K2/K3 take every whitened
-step at the ``default`` class and the Kuf residual stays float32), and
-``--mesh``, the sharded trainer's gate (two ranks on one card
-time-slice it). The reference's all-``highest`` side sets its
-``GRAM_KUF_RESIDUAL`` to the string "off", which its switch reads by its
-truth as on; this side sets False, the plain autograd path that the
-reference's ``--gram_kres`` help names.
+step at the ``default`` class and the Kuf residual stays float32). The
+reference's all-``highest`` side sets its ``GRAM_KUF_RESIDUAL`` to the
+string "off", which its switch reads by its truth as on; this side sets
+False, the plain autograd path that the reference's ``--gram_kres``
+help names.
 """
 
 from __future__ import annotations
@@ -54,17 +64,22 @@ import argparse
 import dataclasses
 import datetime
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dgps_with_iwvi_torch.data import get_regression_data
 from dgps_with_iwvi_torch.device import backend, resolve_device
 from dgps_with_iwvi_torch.evaluation import evaluate, metrics
 from dgps_with_iwvi_torch.experiments.main import gram_switches
 from dgps_with_iwvi_torch.models import BuildArgs, build_model, elbo
+from dgps_with_iwvi_torch.ops.hopper import build as hopper_build
+from dgps_with_iwvi_torch.parallel import launch, make_mesh, sharding
 from dgps_with_iwvi_torch.training import TrainConfig, fit
 
 # (label, dataset, configuration, mode, K, natgrad): reference l.69-82
@@ -80,6 +95,11 @@ GATE_CONFIGS = [
 # all-highest setting: every measurement runs under them
 HIGHEST_SWITCHES = ("highest", False, False)
 KRES = {"auto": "auto", "on": True, "off": False}
+# both sides of the mesh gate: the production defaults (reference
+# l.153-158), with run_setting's other defaults
+MESH_SETTING = dict(var_precision="default", solve_precision="high")
+# the sharded side fails past this many seconds
+MESH_TIMEOUT_S = 4 * 3600
 
 
 def measure(params, config, data, X, Y, device) -> dict:
@@ -107,11 +127,17 @@ def run_setting(label, dataset, conf, mode, K, natgrad, *, var_precision,
                 solve_precision, iterations, seed=0, solve_bwd="same",
                 gram_fwd="highest", minibatch=512, full_batch="auto",
                 gram_kres="auto", device="cuda", num_inducing=128,
-                max_n=None) -> dict:
+                max_n=None, mesh=None) -> dict:
     """Train one gate configuration from `seed` under one setting and
     measure it (reference l.84-134). The gram switches hold `gram_fwd`
     and `gram_kres` (True, False or "auto") for the build and the
-    training only. `num_inducing` and `max_n` shrink the run (tests)."""
+    training only. `num_inducing` and `max_n` shrink the run (tests).
+
+    With `mesh` (``parallel.make_mesh``, called on every rank) the run
+    trains through ``fit(mesh=)`` from a CPU generator seeded alike on
+    every rank; rank 0 alone measures, while the others wait at a
+    barrier, and every rank's row holds the ``digest`` of its trained
+    parameters."""
     device = resolve_device(device)
     data = get_regression_data(dataset, 0, max_n=max_n)
     X = torch.as_tensor(data.X_train, device=device)
@@ -128,16 +154,24 @@ def run_setting(label, dataset, conf, mode, K, natgrad, *, var_precision,
                          steps_per_call=min(500, iterations),
                          solve_bwd_precision=solve_bwd,
                          full_batch_precision=full_batch)
+        generator = torch.Generator(device=device if mesh is None
+                                    else "cpu").manual_seed(seed)
         t0 = time.perf_counter()
-        trained, _ = fit(torch.Generator(device=device).manual_seed(seed),
-                         config, params, X, Y, tc,
-                         callback=lambda s, loss, _st: losses.append(loss))
+        trained, _ = fit(generator, config, params, X, Y, tc,
+                         callback=lambda s, loss, _st: losses.append(loss),
+                         mesh=mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         train_s = time.perf_counter() - t0
-    return {**measure(trained, config, data, X, Y, device),
-            "finite": bool(np.all(np.isfinite(losses))),
-            "train_s": train_s, "steps_per_s": iterations / train_s}
+    row = {"finite": bool(np.all(np.isfinite(losses))),
+           "train_s": train_s, "steps_per_s": iterations / train_s}
+    if mesh is None:
+        return {**measure(trained, config, data, X, Y, device), **row}
+    row["digest"] = sharding.state_digest(trained)
+    if dist.get_rank() == 0:
+        row.update(measure(trained, config, data, X, Y, device))
+    dist.barrier()
+    return row
 
 
 def judge(ref: dict, ref2: dict, cand: dict, rel_tol: float,
@@ -209,6 +243,16 @@ def parse_args(argv=None):
                    help="'highest': the all-highest run (gates the whole "
                         "candidate stack); 'production': the shipped "
                         "defaults (isolates one knob)")
+    p.add_argument("--mesh", default=None, metavar="DPxK",
+                   help="gate the sharded trainer instead: train one gate "
+                        "configuration through fit(mesh=) on DP x K "
+                        "spawned ranks and judge it against the "
+                        "single-device runs' seed band, both sides at the "
+                        "production defaults (the candidate flags are "
+                        "ignored); writes <out>_mesh.json/.md")
+    p.add_argument("--mesh_config", default="LG-energy natgrad",
+                   help="--mesh: the GATE_CONFIGS label to run (its K "
+                        "must divide over the mesh's k axis)")
     p.add_argument("--out", default="QUALITY_GATE",
                    help="output path without suffix: <out>.json, <out>.md")
     p.add_argument("--device", default="cuda",
@@ -250,6 +294,169 @@ def selected_configs(configs: str | None) -> list:
     return chosen
 
 
+def mesh_plan(args) -> tuple:
+    """(dp, k, gate configuration) of ``--mesh``/``--mesh_config``;
+    raises ValueError for a malformed mesh, an unknown label, a k that
+    does not divide the configuration's samples per row (K for IW, S=1
+    for VI), or ``--reuse_ref`` (the mesh gate trains its own
+    references)."""
+    try:
+        dp, k = (int(n) for n in args.mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {args.mesh!r}: want DPxK, e.g. 2x5"
+                         ) from None
+    if dp < 1 or k < 1:
+        raise ValueError(f"--mesh {args.mesh!r}: both sizes must be >= 1")
+    gc = next((g for g in GATE_CONFIGS if g[0] == args.mesh_config), None)
+    if gc is None:
+        raise ValueError(f"--mesh_config {args.mesh_config!r} is none of "
+                         f"{[g[0] for g in GATE_CONFIGS]}")
+    samples = gc[4] if gc[3] == "IW" else 1
+    if samples % k:
+        raise ValueError(f"--mesh {args.mesh}: k={k} does not divide the "
+                         f"{samples} samples per row of {gc[0]}")
+    if args.reuse_ref:
+        raise ValueError("--reuse_ref does not apply to --mesh: the mesh "
+                         "gate trains its own single-device runs")
+    return dp, k, gc
+
+
+def _launch_counts() -> dict:
+    """This process's hand-kernel launches, by kernel and by variant."""
+    counts = {**hopper_build.launches(), **hopper_build.variant_launches()}
+    return {k: v for k, v in counts.items() if v}
+
+
+def _mesh_rank(rank: int, world: int, dp: int, k: int, gc, tmp: str,
+               device: str, iterations: int, threads: int, setting: dict,
+               fail_rank) -> None:
+    """One rank of the mesh gate, spawned by ``run_mesh_gate``: joins the
+    world through a file store in `tmp`, trains `gc` through
+    ``run_setting(mesh=)`` and writes its row, its launches and the
+    backend to tmp/rank<r>.json. `fail_rank`: the rank that raises before
+    training (a planted fault, for tests)."""
+    torch.set_num_threads(threads)
+    device = resolve_device(device)   # no card where one was asked: raise
+    backend_name = launch.join_group(rank, world, tmp, device)
+    try:
+        if rank == fail_rank:
+            raise RuntimeError(f"a fault planted in rank {rank}")
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        row = run_setting(*gc, **MESH_SETTING, iterations=iterations,
+                          device=device, mesh=make_mesh(dp, k, device=device),
+                          **setting)
+        row.update(rank=rank, backend=backend_name,
+                   launches=_launch_counts())
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(row, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_gate(args, device: torch.device, setting: dict,
+                  fail_rank=None) -> dict:
+    """The sharded trainer's convergence gate (reference l.138-209):
+    `args.mesh_config` at seeds 0 and 1 in this process, then at seed 0
+    on dp x k ranks through ``fit(mesh=)`` (``_mesh_rank``), judged by
+    ``judge`` against the single-device seed band; PASS also needs every
+    rank's trained parameters bitwise equal. A rank that fails or
+    outlasts MESH_TIMEOUT_S raises here. Writes <out>_mesh.json/.md."""
+    dp, k, gc = mesh_plan(args)
+    world = dp * k
+    kw = dict(**MESH_SETTING, iterations=args.iterations, device=device,
+              **setting)
+    t0 = time.time()
+    ref = run_setting(*gc, **kw)
+    ref2 = run_setting(*gc, seed=1, **kw)
+    with tempfile.TemporaryDirectory(prefix="quality_gate_mesh_") as tmp:
+        launch.spawn_ranks(
+            _mesh_rank, world, dp, k, gc, tmp, str(device), args.iterations,
+            max(1, torch.get_num_threads() // world), setting, fail_rank,
+            timeout_s=MESH_TIMEOUT_S)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    cand = ranks[0]
+    cand["finite"] = all(r["finite"] for r in ranks)
+    v = judge(ref, ref2, cand, args.rel_tol, args.nll_tol)
+    agree = len({r["digest"] for r in ranks}) == 1
+    ok = v["ok"] and agree
+    verdict = {
+        "date": datetime.datetime.now().isoformat(timespec="seconds"),
+        "mesh": {"dp": dp, "k": k}, "config": gc[0],
+        "iterations": args.iterations,
+        "backend": f"{cand['backend']}, {backend(device)}",
+        "pass": ok,
+        "rows": [{"config": gc[0], "ok": ok,
+                  "elbo_single": ref["elbo_per_point"],
+                  "elbo_single_seed1": ref2["elbo_per_point"],
+                  "elbo_mesh": cand["elbo_per_point"],
+                  "d_elbo_rel": v["d_elbo_rel"],
+                  "seed_band_rel": v["seed_band_rel"],
+                  "tol_elbo_rel": v["tol_elbo_rel"],
+                  "nll_single": ref["test_nll"],
+                  "nll_mesh": cand["test_nll"], "d_nll": v["d_nll"],
+                  "seed_band_nll": v["seed_band_nll"],
+                  "tol_nll": v["tol_nll"], "seconds": time.time() - t0,
+                  "finite": v["finite"], "replicas_bitwise_equal": agree,
+                  "steps_per_s_single": ref["steps_per_s"],
+                  "steps_per_s_single_seed1": ref2["steps_per_s"],
+                  "steps_per_s_mesh": cand["steps_per_s"],
+                  "ranks": [{key: r[key] for key in (
+                      "rank", "digest", "finite", "train_s", "launches")}
+                      for r in ranks]}],
+    }
+    out = args.out + "_mesh"
+    write_mesh_outputs(out, verdict, world, device)
+    r = verdict["rows"][0]
+    print(f"mesh gate: {'PASS' if ok else 'FAIL'} "
+          f"dELBO={r['d_elbo_rel']:.2e} (band {r['seed_band_rel']:.2e}) "
+          f"dNLL={r['d_nll']:.4f} (band {r['seed_band_nll']:.4f}), "
+          f"replicas equal {agree}, steps/s {r['steps_per_s_single']:.1f}, "
+          f"{r['steps_per_s_single_seed1']:.1f}, {r['steps_per_s_mesh']:.1f} "
+          f"-> {out}.md ({r['seconds']:.0f}s)", flush=True)
+    return verdict
+
+
+def write_mesh_outputs(out: str, verdict: dict, world: int,
+                       device: torch.device) -> None:
+    """<out>.json, and <out>.md in the reference's form with seconds and
+    steps/s after its columns."""
+    with open(out + ".json", "w") as f:
+        json.dump(verdict, f, indent=1)
+    r = verdict["rows"][0]
+    dp, k = verdict["mesh"]["dp"], verdict["mesh"]["k"]
+    mark = "PASS" if verdict["pass"] else "FAIL"
+    where = "cuda:0" if device.type == "cuda" else "the CPU"
+    with open(out + ".md", "w") as f:
+        f.write(
+            f"# Sharded-trainer convergence gate — {mark}\n\n"
+            f"{verdict['date']}, backend={verdict['backend']} ({dp}x{k} "
+            f"mesh, {world} ranks on {where}), config {r['config']}, "
+            f"{verdict['iterations']} steps, production precision defaults "
+            "both sides. The sharded trajectory (rows over 'dp', samples "
+            "over 'k', all-reduced grads) must land within 1.5x the "
+            "single-device seed-to-seed band — a TRAJECTORY property; the "
+            "test suite pins only step-granular exactness. Replicas "
+            f"bitwise equal at the end: {r['replicas_bitwise_equal']}. "
+            "Steps/s: single, single seed 1, mesh (training only; single "
+            "graphed, capture included; mesh eager, rank 0).\n\n"
+            "| config | verdict | ELBO/n single | ELBO/n seed1 | ELBO/n "
+            "mesh | dELBO rel | band | NLL single | NLL mesh | dNLL | s "
+            "| steps/s |\n"
+            "|---|---|---|---|---|---|---|---|---|---|---|---|\n"
+            f"| {r['config']} | {'PASS' if r['ok'] else 'FAIL'} | "
+            f"{r['elbo_single']:+.4f} | {r['elbo_single_seed1']:+.4f} | "
+            f"{r['elbo_mesh']:+.4f} | {r['d_elbo_rel']:.2e} | "
+            f"{r['seed_band_rel']:.2e} | {r['nll_single']:+.4f} | "
+            f"{r['nll_mesh']:+.4f} | {r['d_nll']:.4f} | {r['seconds']:.0f} "
+            f"| {r['steps_per_s_single']:.1f}, "
+            f"{r['steps_per_s_single_seed1']:.1f}, "
+            f"{r['steps_per_s_mesh']:.1f} |\n")
+
+
 def write_outputs(out: str, verdict: dict, args) -> None:
     """<out>.json, and <out>.md in the reference's form with seconds and
     steps/s per run after its columns."""
@@ -288,12 +495,17 @@ def write_outputs(out: str, verdict: dict, args) -> None:
                     f"{r['d_nll']:.4f} | {r['seconds']:.0f} | {rates} |\n")
 
 
-def main(argv=None, **setting) -> dict:
+def main(argv=None, *, fail_rank=None, **setting) -> dict:
     """Run the gate of `argv` (the CLI's flags) and write its record;
     returns the verdict. `setting`: keywords for every ``run_setting``
-    (tests shrink the runs with ``num_inducing=`` and ``max_n=``)."""
+    (tests shrink the runs with ``num_inducing=`` and ``max_n=``);
+    `fail_rank`: with ``--mesh``, the rank that raises (tests)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        hopper_build.build_all()   # nvcc here, not in a run's timed fit
+    if args.mesh:
+        return run_mesh_gate(args, device, setting, fail_rank)
     reuse = (reused_references(args.reuse_ref, args) if args.reuse_ref
              else None)
     gate_configs = selected_configs(args.configs)

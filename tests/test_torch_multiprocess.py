@@ -1,7 +1,8 @@
 """Runs of the port over several processes (the counterparts of
 tests/test_multiprocess.py): gloo ranks spawned on the CPU
 (tests/torch_dist_worker.py), each holding only its own rows, and both
-CLIs launched over two ranks as torchrun would launch them.
+CLIs launched over two ranks as torchrun would launch them; the
+launcher's deadline and its backend rule (``parallel/launch.py``).
 """
 
 import os
@@ -156,3 +157,32 @@ def test_sharded_serve_equals_unsharded(cli_world):
     for k in a.files:
         np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=0,
                                    err_msg=k)
+
+
+def test_spawned_ranks_past_their_deadline_are_killed(tmp_path):
+    """``parallel.launch.spawn_ranks`` kills every rank that outlasts its
+    deadline and raises."""
+    from dgps_with_iwvi_torch.parallel import launch
+
+    with pytest.raises(TimeoutError, match="ran past 2 s"):
+        launch.spawn_ranks(W.sleeper, 2, 600.0, timeout_s=2.0)
+
+
+@pytest.mark.parametrize("device,world,cards,want", [
+    ("cpu", 2, 0, "gloo"),
+    ("cuda", 10, 1, "gloo"),      # ten ranks on one card
+    ("cuda", 4, 4, "nccl"),       # a card for each rank
+    ("cuda", 4, 2, "gloo"),
+])
+def test_join_group_picks_the_backend(monkeypatch, tmp_path, device, world,
+                                      cards, want):
+    from dgps_with_iwvi_torch.parallel import distributed, launch
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(distributed, "initialize",
+                        lambda *a, **kw: seen.append((a, kw)))
+    assert launch.join_group(1, world, str(tmp_path), device) == want
+    (backend, init, n, rank), kw = seen[0]
+    assert (backend, n, rank, kw["device"].type) == (want, world, 1, device)
+    assert init == "file://" + str(tmp_path / "store")

@@ -10,7 +10,12 @@ float64 arithmetic in the same order).
 Then the CLI at a small size (M=16, 20 steps): the record's fields and
 columns, ``--reuse_ref`` training no reference side, and the switch and
 graph hygiene of the measurement, with the evaluation's CUDA graphs
-replaced by a fake that records the gram switches of its capture.
+replaced by a fake that records the gram switches of its capture; a
+full-batch candidate trained exactly as the all-highest side; and the
+sharded trainer's gate (``--mesh``): its flags against the reference's
+parser, read with ``ast``, its refusals, one ``--quick`` run on two gloo
+ranks with the reference's record fields and columns, and a rank that
+raises.
 """
 
 import ast
@@ -31,6 +36,15 @@ from torch_threads import one_thread  # noqa: F401  (autouse)
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks")
 RECORDS = ("QUALITY_GATE.json", "QUALITY_GATE_solvebwd.json")
+MESH_RECORD = "QUALITY_GATE_mesh.json"
+# the mesh record's fields under the names of a gate row
+MESH_AS_GATE_ROW = {"elbo_single": "elbo_ref",
+                    "elbo_single_seed1": "elbo_ref_seed1",
+                    "elbo_mesh": "elbo_cand", "nll_single": "nll_ref",
+                    "nll_mesh": "nll_cand"}
+# what the port's mesh row adds to the reference's fields
+MESH_ROW_EXTRA = {"finite", "replicas_bitwise_equal", "steps_per_s_single",
+                  "steps_per_s_single_seed1", "steps_per_s_mesh", "ranks"}
 SMALL = dict(num_inducing=16)          # run_setting keywords of the tests
 ITERS = ["--device", "cpu", "--iterations", "20"]
 REF_COLUMNS = ("| config | verdict | ELBO/n ref | ELBO/n cand | dELBO rel "
@@ -56,10 +70,28 @@ def test_gate_configs_equal_the_reference():
     assert qg.GATE_CONFIGS == ref
 
 
+def _mesh_record_as_gate_rows() -> tuple:
+    """The mesh record as a gate record: its fields renamed, every run
+    finite (its ``ok`` says so), and the tolerances of the reference's
+    defaults, which the mesh run took."""
+    with open(os.path.join(BENCH, MESH_RECORD)) as f:
+        rec = json.load(f)
+    defaults = qg.parse_args([])
+    rec["tolerances"] = {"elbo_rel": defaults.rel_tol,
+                         "nll_nats": defaults.nll_tol}
+    rec["rows"] = [dict({MESH_AS_GATE_ROW.get(k, k): v
+                         for k, v in row.items()}, finite=True)
+                   for row in rec["rows"]]
+    return rec
+
+
 def _record_rows():
+    recs = []
     for name in RECORDS:
         with open(os.path.join(BENCH, name)) as f:
-            rec = json.load(f)
+            recs.append((name, json.load(f)))
+    recs.append((MESH_RECORD, _mesh_record_as_gate_rows()))
+    for name, rec in recs:
         for row in rec["rows"]:
             yield pytest.param(rec, row, id=f"{name}:{row['config']}")
 
@@ -79,7 +111,7 @@ def test_judge_reproduces_the_reference_records(rec, row):
     tol = rec["tolerances"]
     got = qg.judge(ref, ref2, cand, tol["elbo_rel"], tol["nll_nats"])
     for key in ("d_elbo_rel", "seed_band_rel", "tol_elbo_rel", "d_nll",
-                "tol_nll"):
+                "seed_band_nll", "tol_nll"):
         np.testing.assert_allclose(got[key], row[key], rtol=1e-12,
                                    err_msg=key)
     assert got["ok"] is row["ok"]
@@ -284,3 +316,128 @@ def test_measurement_runs_under_highest_on_no_stale_graph(tmp_path,
         s[1:] == (qg.HIGHEST_SWITCHES, "highest", "highest") for s in seen)
     assert TaggedGraph.used and set(TaggedGraph.used) == {
         qg.HIGHEST_SWITCHES}
+
+
+def _reference_flag_defaults(flags) -> dict:
+    """{flag: default} of the reference's ``add_argument`` calls, read
+    from its source."""
+    with open(os.path.join(BENCH, "quality_gate.py")) as f:
+        tree = ast.parse(f.read())
+    found = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "add_argument"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value in flags):
+            found[node.args[0].value] = next(
+                ast.literal_eval(kw.value) for kw in node.keywords
+                if kw.arg == "default")
+    return found
+
+
+def test_mesh_flags_follow_the_reference():
+    ref = _reference_flag_defaults({"--mesh", "--mesh_config"})
+    a = qg.parse_args([])
+    assert (a.mesh, a.mesh_config) == (ref["--mesh"], ref["--mesh_config"])
+    assert ref == {"--mesh": None, "--mesh_config": "LG-energy natgrad"}
+    # --quick first (reference l.327-330), then the mesh takes the run
+    a = qg.parse_args(["--mesh", "2x5", "--quick", "--minibatch", "64"])
+    assert (a.iterations, a.rel_tol, a.nll_tol) == (500, 0.2, 0.5)
+    assert qg.mesh_plan(a) == (2, 5, qg.GATE_CONFIGS[0])
+    assert qg.mesh_plan(qg.parse_args(
+        ["--mesh", "1X20", "--mesh_config", "LGG-kin8nm natgrad"])) == (
+        1, 20, qg.GATE_CONFIGS[2])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "2x5", "--mesh_config", "LG-energy"], "is none of"),
+    (["--mesh", "2x3"], "k=3 does not divide the 5 samples"),
+    (["--mesh", "1x2", "--mesh_config", "GG-energy ADAM-ONLY"],
+     "k=2 does not divide the 1 samples"),
+    (["--mesh", "2x5", "--reuse_ref", "prev.json"], "--reuse_ref"),
+    (["--mesh", "two"], "want DPxK"),
+    (["--mesh", "0x5"], ">= 1"),
+])
+def test_mesh_gate_refuses(flags, match):
+    """Refused by main before any run trains or any rank starts."""
+    with pytest.raises(ValueError, match=match):
+        qg.main(flags + ["--device", "cpu"],
+                num_inducing="a run would fail on this")
+
+
+@pytest.mark.parametrize("label", ["LGG-kin8nm natgrad",
+                                   "GG-energy ADAM-ONLY"])
+def test_full_batch_candidate_trains_as_the_highest_side(label):
+    """At minibatch >= N, ``full_batch_precision="auto"`` escalates the
+    candidate to the all-highest classes: its run equals the reference
+    side's bit for bit (the reference's B=8192 rows read dELBO 0.00e+00),
+    where with the escalation off it does not."""
+    gc = next(g for g in qg.GATE_CONFIGS if g[0] == label)
+    kw = dict(iterations=10, device="cpu", num_inducing=16, max_n=100,
+              minibatch=512)
+    ref = qg.run_setting(*gc, var_precision="highest",
+                         solve_precision="highest", gram_kres=False, **kw)
+    cand = dict(var_precision="default", solve_precision="high",
+                solve_bwd="auto", gram_kres="auto", **kw)
+    got = qg.run_setting(*gc, **cand)
+    off = qg.run_setting(*gc, full_batch="off", **cand)
+    for key in ("elbo_per_point", "test_nll", "test_rmse"):
+        assert got[key] == ref[key], key
+    assert off["elbo_per_point"] != ref["elbo_per_point"]
+
+
+def test_mesh_gate_on_two_cpu_ranks(tmp_path):
+    """``--mesh 2x1 --quick`` on the CPU: two gloo ranks spawned through
+    ``parallel.launch.spawn_ranks``; the record has the reference's
+    fields (plus the port's steps/s and ranks) and columns, a finite
+    mesh ELBO, and both ranks' trained parameters bitwise equal."""
+    out = str(tmp_path / "gate")
+    verdict = qg.main(["--mesh", "2x1", "--quick", "--device", "cpu",
+                       "--out", out], num_inducing=16, max_n=300)
+    with open(os.path.join(BENCH, MESH_RECORD)) as f:
+        ref = json.load(f)
+    with open(out + "_mesh.json") as f:
+        rec = json.load(f)
+    assert rec == json.loads(json.dumps(verdict))
+    assert set(rec) == set(ref)
+    row, ref_row = rec["rows"][0], ref["rows"][0]
+    assert set(row) == set(ref_row) | MESH_ROW_EXTRA
+    assert (rec["mesh"], rec["config"], rec["iterations"],
+            rec["backend"]) == ({"dp": 2, "k": 1}, "LG-energy natgrad", 500,
+                                "gloo, cpu")
+    assert math.isfinite(row["elbo_mesh"]) and row["finite"]
+    assert [r["rank"] for r in row["ranks"]] == [0, 1]
+    assert row["ranks"][0]["digest"] == row["ranks"][1]["digest"]
+    assert row["replicas_bitwise_equal"] is True
+    assert all(r["launches"] == {} for r in row["ranks"])  # plain versions
+    assert all(row[k] > 0 for k in ("steps_per_s_single",
+                                     "steps_per_s_single_seed1",
+                                     "steps_per_s_mesh"))
+    v = qg.judge(
+        {"elbo_per_point": row["elbo_single"], "test_nll": row["nll_single"],
+         "finite": True},
+        {"elbo_per_point": row["elbo_single_seed1"],
+         "test_nll": row["nll_single"] + row["seed_band_nll"],
+         "finite": True},
+        {"elbo_per_point": row["elbo_mesh"], "test_nll": row["nll_mesh"],
+         "finite": True}, 0.2, 0.5)
+    assert rec["pass"] is row["ok"] is v["ok"]
+    with open(os.path.join(BENCH, "QUALITY_GATE_mesh.md")) as f:
+        ref_md = f.read().splitlines()
+    with open(out + "_mesh.md") as f:
+        md = f.read().splitlines()
+    assert md[0] == "# Sharded-trainer convergence gate — " + (
+        "PASS" if rec["pass"] else "FAIL")
+    assert "backend=gloo, cpu (2x1 mesh, 2 ranks on the CPU)" in md[2]
+    header = next(i for i, ln in enumerate(ref_md) if ln.startswith("|"))
+    assert md[header].startswith(ref_md[header])
+    assert len(md) == len(ref_md) and md[-1].startswith(
+        "| LG-energy natgrad | ")
+
+
+def test_mesh_gate_fails_on_a_rank_that_raises(tmp_path):
+    out = str(tmp_path / "gate")
+    with pytest.raises(Exception, match="a fault planted in rank 1"):
+        qg.main(["--mesh", "2x1", "--iterations", "2", "--device", "cpu",
+                 "--out", out], fail_rank=1, num_inducing=8, max_n=64)
+    assert not os.path.exists(out + "_mesh.json")

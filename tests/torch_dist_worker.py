@@ -1,11 +1,12 @@
 """Rank programs of the port's torch.distributed tests
 (tests/test_torch_parallel.py, tests/test_torch_multiprocess.py).
 
-``spawn_world`` starts `world` processes through ``torch.multiprocessing``
-(spawn); each joins a gloo world through a ``FileStore`` under the test's
-temporary directory (no TCP port, so parallel test workers cannot
-collide), runs one program of this module with one CPU thread, and saves
-what it returns to ``rank<r>.pt`` for the test to compare. This module
+``spawn_world`` starts `world` processes through the package's
+``parallel.launch.spawn_ranks``; each joins a gloo world through a
+``FileStore`` under the test's temporary directory (no TCP port, so
+parallel test workers cannot collide), runs one program of this module
+with one CPU thread, and saves what it returns to ``rank<r>.pt`` for the
+test to compare. This module
 imports torch and the port only: the JAX reference runs in the test
 process, which hands its draws to the ranks as numpy arrays.
 """
@@ -19,7 +20,6 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from dgps_with_iwvi_torch import params as tparams
 from dgps_with_iwvi_torch.evaluation import evaluate
@@ -27,6 +27,7 @@ from dgps_with_iwvi_torch.models import init_dgp
 from dgps_with_iwvi_torch.parallel import (make_mesh, make_parallel_trainer,
                                            replicate, shard_arrays)
 from dgps_with_iwvi_torch.parallel import sharding
+from dgps_with_iwvi_torch.parallel.launch import spawn_ranks
 from dgps_with_iwvi_torch.parallel.mesh import coordinate
 from dgps_with_iwvi_torch.training import TrainConfig, fit
 from dgps_with_iwvi_torch.training.checkpoint import (restore_checkpoint,
@@ -40,19 +41,15 @@ def spawn_world(program: str, world: int, tmp_path, payload,
     `timeout` seconds."""
     tmp = str(tmp_path)
     os.makedirs(tmp, exist_ok=True)
-    ctx = mp.start_processes(
-        _entry, args=(world, os.path.join(tmp, f"{program}.store"), program,
-                      payload, tmp),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{program}: ranks still running after "
-                               f"{timeout} s")
+    spawn_ranks(_entry, world, os.path.join(tmp, f"{program}.store"),
+                program, payload, tmp, timeout_s=timeout)
     return [torch.load(os.path.join(tmp, f"{program}.rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+def sleeper(rank: int, world: int, seconds: float) -> None:
+    """A rank that only waits (the deadline's test)."""
+    time.sleep(seconds)
 
 
 def _entry(rank: int, world: int, store: str, program: str, payload,
