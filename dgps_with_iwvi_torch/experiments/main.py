@@ -164,7 +164,13 @@ def parse_args(argv=None):
                    help="resume from the latest checkpoint in --ckpt_dir")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of the training loop "
-                        "to DIR/trace.json")
+                        "to DIR/trace.json (a chrome trace); it carries the "
+                        "program's spans (utils/trace.py): dgps.fit.chunk "
+                        "(a chunk's steps), dgps.fit.readback (its mean "
+                        "loss to the host), dgps.fit.callback (logging and "
+                        "checkpoints), dgps.graphs.capture (the step's "
+                        "warm-up and capture) and dgps.graphs.replay (one "
+                        "per graphed step)")
     p.add_argument("--max_n", type=int, default=None,
                    help="cap dataset size (smoke tests)")
     p.add_argument("--device", default="cuda",

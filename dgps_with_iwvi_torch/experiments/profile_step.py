@@ -10,7 +10,9 @@ steps on the card: by default replays of the captured step
 ``jax.jit(chunk_fn)``), with ``--eager`` the eager chunk. It prints the
 device self time per step, then the top 30 kernels (ms per step, share
 of the step, calls per step, name), the device's idle share of the
-window and the hand kernels' launches per step with their work
+window with its idle time split into starved gaps, by the program's span
+(``utils.trace``), and the graph's node gaps (``idle_split``), and the
+hand kernels' launches per step with their work
 (``ops.hopper.build.launch_costs``); ``run`` returns the same as a dict
 and ``--out`` writes it as JSON, with the card's name and power limit.
 
@@ -32,6 +34,8 @@ also chip_smoke.py's.
 from __future__ import annotations
 
 import argparse
+import bisect
+import heapq
 import json
 import time
 
@@ -42,8 +46,10 @@ from dgps_with_iwvi_torch.data import get_regression_data
 from dgps_with_iwvi_torch.device import backend, resolve_device
 from dgps_with_iwvi_torch.models import BuildArgs, build_model
 from dgps_with_iwvi_torch.ops.hopper import build
+from dgps_with_iwvi_torch.utils import trace
 
 TOP = 30
+WINDOW = "profile_step.window"
 
 
 def flagship(minibatch: int, steps_per_call: int, device):
@@ -87,6 +93,100 @@ def device_rows(averages, per: int, device_type: str = "CUDA"):
     return rows, spans
 
 
+def _union(intervals) -> list:
+    """Sorted, merged [(start, end)] of intervals."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [tuple(x) for x in out]
+
+
+def _innermost(spans) -> list:
+    """[(start, end, name)]: the time that `spans` [(start, end, name)]
+    cover, cut where the innermost open span (the one opened last)
+    changes."""
+    cuts = sorted({t for s, e, _ in spans for t in (s, e)})
+    order, open_, out, j = sorted(spans), [], [], 0
+    for a, b in zip(cuts, cuts[1:]):
+        while j < len(order) and order[j][0] <= a:
+            s, e, name = order[j]
+            heapq.heappush(open_, (-s, e, name))
+            j += 1
+        while open_ and open_[0][1] <= a:
+            heapq.heappop(open_)
+        if open_:
+            out.append((a, b, open_[0][2]))
+    return out
+
+
+def idle_split(events, window) -> dict:
+    """The device's busy and idle time over `window` (start_ns, end_ns)
+    of a profile's events (``prof.profiler.kineto_results.events()``),
+    with the idle time split in two. Busy is the union of the device's
+    operations (kernels, copies, sets), so operations that overlap on
+    two streams count once. A gap between them is starved where the
+    operation that ends it was launched (its CUDA runtime or driver
+    call, joined by correlation id, began) after the gap began, or where
+    no operation ends it: the device waited for the host. Otherwise it
+    is a node gap: the work was queued, as between the nodes of a
+    replayed graph (their launch is the graph's), or its launch is not
+    in the profile. Starved time is split across the innermost program
+    span (``utils.trace``) open over it, the part outside every program
+    span under None. Returns {"window_ns", "busy_ns", "node_gap_ns",
+    "starved_ns": {span name or None: ns}}."""
+    w0, w1 = window
+    ops, launched, spans = [], {}, []
+    for ev in events:
+        name, s = ev.name(), ev.start_ns()
+        e = s + ev.duration_ns()
+        if str(ev.device_type()).endswith("CUDA"):
+            if not ev.is_user_annotation() and e > w0 and s < w1:
+                ops.append((max(s, w0), min(e, w1), ev.correlation_id()))
+        elif ev.is_user_annotation():
+            if name.startswith(trace.PREFIX) and e > w0 and s < w1:
+                spans.append((max(s, w0), min(e, w1), name))
+        elif name.startswith("cu") and ev.correlation_id():
+            # a CUDA runtime or driver call; a host op's correlation id
+            # counts the profiler's ops, not CUPTI's calls
+            c = ev.correlation_id()
+            launched[c] = min(s, launched.get(c, s))
+    first = {}   # an op's start -> the earliest launch of the ops there
+    for s, _, c in ops:
+        first[s] = min(first.get(s, float("inf")),
+                       launched.get(c, float("-inf")))
+    busy = _union((s, e) for s, e, _ in ops)
+    gaps, t = [], w0
+    for s, e in busy:
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if w1 > t:
+        gaps.append((t, w1))
+    pieces = _innermost(spans)
+    starts = [p[0] for p in pieces]
+    starved, node = {}, 0
+    for a, b in gaps:
+        if first.get(b, float("inf")) <= a:
+            node += b - a
+            continue
+        left = b - a
+        for ps, pe, name in pieces[max(0, bisect.bisect_right(starts, a)
+                                       - 1):]:
+            if ps >= b:
+                break
+            part = min(b, pe) - max(a, ps)
+            if part > 0:
+                starved[name] = starved.get(name, 0) + part
+                left -= part
+        if left:
+            starved[None] = starved.get(None, 0) + left
+    return {"window_ns": w1 - w0, "busy_ns": sum(e - s for s, e in busy),
+            "node_gap_ns": node, "starved_ns": starved}
+
+
 def _work_since(before: dict, per: int) -> dict:
     """The hand kernels' launches and work per unit since `before` (a
     ``build.launch_costs()``)."""
@@ -103,11 +203,15 @@ def profile_window(fn, per: int, unit: str, device, top: int | None = None,
                    **profile_kwargs):
     """(profile, the torch profiler) of one call of ``fn()``, which runs
     `per` units (steps, requests): on the card, the device's self time by
-    kernel per unit, the device's idle share of the window's wall time
-    (the profiler stretches the host's side of it), the runtime's kernel
-    launches and the hand kernels' launches and work per unit; on the
-    CPU, the host's self time by op. `top` keeps the largest rows."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel per unit, the device's idle share of the window (one minus the
+    union of its operations over the window, on the profiler's clock; the
+    profiler stretches the host's side of it) and that idle time per unit
+    split into starved gaps, by program span, and node gaps
+    (``idle_split``), the runtime's kernel launches and the hand kernels'
+    launches and work per unit; on the CPU, the host's self time by op.
+    The annotation rows hold the program's spans (``utils.trace``) and
+    the window's own. `top` keeps the largest rows."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     on_card = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + (
@@ -116,11 +220,12 @@ def profile_window(fn, per: int, unit: str, device, top: int | None = None,
         torch.cuda.synchronize()
     before = build.launch_costs()
     with profile(activities=activities, **profile_kwargs) as prof:
-        t0 = time.perf_counter()
-        fn()
-        if on_card:
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            fn()
+            if on_card:
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
     rows, spans = device_rows(averages, per, "CUDA" if on_card else "CPU")
     rows.sort(reverse=True)
@@ -134,7 +239,17 @@ def profile_window(fn, per: int, unit: str, device, top: int | None = None,
            f"annotations_ms_per_{unit}": [
                {"span": k[:200], "ms": ms} for ms, _, k in spans]}
     if on_card:
-        out["idle_share"] = 1.0 - busy_ms * per / wall_ms
+        events = prof.profiler.kineto_results.events()
+        (window,) = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in events if e.name() == WINDOW
+                     and not str(e.device_type()).endswith("CUDA")]
+        split = idle_split(events, window)
+        out["idle_share"] = 1.0 - split["busy_ns"] / split["window_ns"]
+        out[f"node_gap_ms_per_{unit}"] = split["node_gap_ns"] / 1e6 / per
+        out[f"starved_ms_per_{unit}"] = {
+            (k or "(no span)"): ns / 1e6 / per
+            for k, ns in sorted(split["starved_ns"].items(),
+                                key=lambda kv: -kv[1])}
         out[f"kernel_launches_per_{unit}"] = sum(
             e.count for e in averages
             if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")) / per
@@ -225,6 +340,11 @@ def report(rec: dict) -> list:
         lines += ["", f"idle share of the window: {rec['idle_share']:.3f}; "
                       f"runtime kernel launches per step: "
                       f"{rec['kernel_launches_per_step']:.1f}",
+                  f"idle per step: node gaps "
+                  f"{rec['node_gap_ms_per_step'] * 1e3:.1f} us; starved "
+                  + (", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                               rec["starved_ms_per_step"].items())
+                     or "none"),
                   "hand kernels per step: " + ", ".join(
                       f"{k} {v['launches']:g}" for k, v in
                       sorted(rec["hand_kernels_per_step"].items()))]

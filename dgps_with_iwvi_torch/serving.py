@@ -52,6 +52,7 @@ from .ops.hopper.conditional import philox_normal
 from .ops.precision import f32_reductions
 from .params import params_to_device
 from .utils import graphs
+from .utils.trace import span
 
 _FORMAT_VERSION = 1
 _EXAMPLE_ROWS = 16  # batch of the example inputs of a polymorphic export
@@ -197,49 +198,57 @@ def score_table(call, X, Y, d_in: int, d_y: int, batches, device, *,
     in one copy. ``stage(rows)``, where given, is the float32 device
     buffer [rows, d_in + d_y] that a batch is copied into (a CUDA graph's
     static input, ``GraphedScore.stage``); else each batch is a new
-    tensor."""
+    tensor. Each step of the loop is a span of ``utils.trace``
+    (``serving.table``, ``.pin``, ``.upload``, ``.batch``, ``.copyback``,
+    ``.unpack``)."""
     d_out = d_y if d_mean is None else d_mean
-    X = np.asarray(X, np.float32)
-    n = X.shape[0]
-    if X.ndim != 2 or X.shape[1] != d_in:
-        raise ValueError(f"X must be [n, {d_in}], got {X.shape}")
-    have_y = Y is not None
-    if have_y:
-        Y = np.asarray(Y, np.float32)
-        if Y.shape != (n, d_y):
-            raise ValueError(f"Y must be [{n}, {d_y}] to match X and the "
-                             f"scorer's labels, got {Y.shape}")
-    rows = max(start + size for start, size, _ in batches)
-    table = np.zeros((rows, d_in + d_y), np.float32)
-    table[:n, :d_in] = X
-    if have_y:
-        table[:n, d_in:] = Y
-    host = torch.from_numpy(table).to(getattr(torch, transport_in))
+    with span("serving.table"):
+        X = np.asarray(X, np.float32)
+        n = X.shape[0]
+        if X.ndim != 2 or X.shape[1] != d_in:
+            raise ValueError(f"X must be [n, {d_in}], got {X.shape}")
+        have_y = Y is not None
+        if have_y:
+            Y = np.asarray(Y, np.float32)
+            if Y.shape != (n, d_y):
+                raise ValueError(f"Y must be [{n}, {d_y}] to match X and "
+                                 f"the scorer's labels, got {Y.shape}")
+        rows = max(start + size for start, size, _ in batches)
+        table = np.zeros((rows, d_in + d_y), np.float32)
+        table[:n, :d_in] = X
+        if have_y:
+            table[:n, d_in:] = Y
+        host = torch.from_numpy(table).to(getattr(torch, transport_in))
     on_card = device.type == "cuda"
     if on_card:
-        host = host.pin_memory()
+        with span("serving.pin"):
+            host = host.pin_memory()
     out_dt = getattr(torch, transport)
     outs, done = [], []
     with torch.no_grad(), f32_reductions():
         for i, (start, size, keep) in enumerate(batches):
             if depth is not None and len(done) >= depth:
                 done[len(done) - depth].synchronize()
-            src = host[start:start + size]
-            if stage is None:
-                batch = src.to(device, non_blocking=True).float()
-            else:
-                batch = stage(size).copy_(src, non_blocking=True)
-            m, v, ld = call(i, batch[:, :d_in], batch[:, d_in:])
-            outs.append(torch.cat([m[:keep], v[:keep], ld[:keep, None]],
-                                  1).to(out_dt))
+            with span("serving.upload"):
+                src = host[start:start + size]
+                if stage is None:
+                    batch = src.to(device, non_blocking=True).float()
+                else:
+                    batch = stage(size).copy_(src, non_blocking=True)
+            with span("serving.batch"):
+                m, v, ld = call(i, batch[:, :d_in], batch[:, d_in:])
+                outs.append(torch.cat([m[:keep], v[:keep], ld[:keep, None]],
+                                      1).to(out_dt))
             if on_card and depth is not None:
                 done.append(torch.cuda.Event())
                 done[-1].record()
-        res = torch.cat(outs).cpu().float().numpy()
-    out = {"mean": np.ascontiguousarray(res[:, :d_out]),
-           "var": np.ascontiguousarray(res[:, d_out:2 * d_out])}
-    if have_y:
-        out["log_density"] = np.ascontiguousarray(res[:, 2 * d_out])
+        with span("serving.copyback"):
+            res = torch.cat(outs).cpu().float().numpy()
+    with span("serving.unpack"):
+        out = {"mean": np.ascontiguousarray(res[:, :d_out]),
+               "var": np.ascontiguousarray(res[:, d_out:2 * d_out])}
+        if have_y:
+            out["log_density"] = np.ascontiguousarray(res[:, 2 * d_out])
     return out
 
 
@@ -279,16 +288,17 @@ class Scorer:
 
         Batch i uses seed + i; a short last batch is padded to max_batch,
         so every call runs at one shape (``score_table``)."""
-        if Y is None and self.config.likelihood == "switched_gaussian":
-            raise ValueError("a switched_gaussian model needs the "
-                             "task-tagged Y to score")
-        fn, stage = self._fn, None
-        if self._graphed is not None:
-            fn, stage = self._graphed, self._graphed.stage
-        return score_table(
-            lambda i, xb, yb: fn(xb, yb, seed + i), X, Y, self.d_in,
-            self.d_y, fixed_batches(len(X), max_batch), self.device,
-            d_mean=self.d_out, stage=stage)
+        with span("serving.score"):
+            if Y is None and self.config.likelihood == "switched_gaussian":
+                raise ValueError("a switched_gaussian model needs the "
+                                 "task-tagged Y to score")
+            fn, stage = self._fn, None
+            if self._graphed is not None:
+                fn, stage = self._graphed, self._graphed.stage
+            return score_table(
+                lambda i, xb, yb: fn(xb, yb, seed + i), X, Y, self.d_in,
+                self.d_y, fixed_batches(len(X), max_batch), self.device,
+                d_mean=self.d_out, stage=stage)
 
 
 def artifact_noise(seed, config, num_samples: int, batch: int,

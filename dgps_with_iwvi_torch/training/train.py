@@ -34,6 +34,7 @@ import torch
 from ..models import dgp
 from ..ops.precision import Numerics
 from ..utils import graphs
+from ..utils.trace import span
 from . import natgrad as ng
 
 
@@ -393,7 +394,11 @@ def fit(generator: torch.Generator, config: dgp.DGPConfig, params,
             f"{tc.steps_per_call}")
     n_chunks = -(-tc.iterations // tc.steps_per_call)
     for c in range(state.step // tc.steps_per_call, n_chunks):
-        state, losses = chunk_fn(state, X, Y, generator)
+        with span("fit.chunk"):
+            state, losses = chunk_fn(state, X, Y, generator)
         if callback is not None:
-            callback((c + 1) * tc.steps_per_call, float(losses.mean()), state)
+            with span("fit.readback"):
+                loss = float(losses.mean())
+            with span("fit.callback"):
+                callback((c + 1) * tc.steps_per_call, loss, state)
     return params_fn(state), state

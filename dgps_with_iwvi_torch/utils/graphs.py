@@ -45,6 +45,7 @@ import time
 import torch
 
 from ..ops.hopper import build
+from .trace import span
 
 _streams: dict = {}
 
@@ -112,19 +113,21 @@ class Graph:
 
     def __init__(self, fn, *, device, generators=()):
         t0 = time.perf_counter()
-        stream = capture_stream(device)
-        self.first = _warm_up(fn, stream, device)
-        self._graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            self._graph.register_generator_state(gen)
-        with build.capturing() as self.launches:
-            self.out = _capture(self._graph, fn, stream)
+        with span("graphs.capture"):
+            stream = capture_stream(device)
+            self.first = _warm_up(fn, stream, device)
+            self._graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                self._graph.register_generator_state(gen)
+            with build.capturing() as self.launches:
+                self.out = _capture(self._graph, fn, stream)
         self.capture_s = time.perf_counter() - t0
 
     def replay(self):
         """Launch the graph on the current stream; returns ``out``."""
-        self._graph.replay()
-        build.replayed(self.launches)
+        with span("graphs.replay"):
+            self._graph.replay()
+            build.replayed(self.launches)
         return self.out
 
 

@@ -587,6 +587,85 @@ def test_profile_window_on_the_cpu_reads_the_host():
                for r in out["ops_ms_per_step"])
 
 
+def _kineto_event(name, start, end, device="CPU", corr=0,
+                  annotation=False):
+    """A profiler event as ``kineto_results.events()`` gives it."""
+    return SimpleNamespace(
+        name=lambda: name, start_ns=lambda: start,
+        duration_ns=lambda: end - start,
+        device_type=lambda: f"DeviceType.{device}",
+        correlation_id=lambda: corr, is_user_annotation=lambda: annotation)
+
+
+def _device_op(start, end, corr):
+    return _kineto_event(f"kernel{corr}", start, end, "CUDA", corr)
+
+
+def _runtime_call(start, corr, name="cudaLaunchKernel"):
+    return _kineto_event(name, start, start + 2, corr=corr)
+
+
+def _program_span(name, start, end):
+    return _kineto_event("dgps." + name, start, end, annotation=True)
+
+
+def test_idle_split_takes_the_union_of_overlapping_operations():
+    """A copy beside a kernel on a second stream counts once, where the
+    sum of self times counts the overlap twice: busy 150 of 200, not 180.
+    The first gap ends with an operation launched before the window (a
+    node gap), the last ends the window with nothing queued (starved);
+    a range the profiler draws on the device for a host span is not an
+    operation."""
+    events = [_runtime_call(-50, 1), _runtime_call(-40, 2),
+              _device_op(20, 120, 1), _device_op(90, 170, 2),
+              _kineto_event("dgps.graphs.replay", 10, 180, "CUDA",
+                            annotation=True)]
+    split = profile_step.idle_split(events, (0, 200))
+    assert split == {"window_ns": 200, "busy_ns": 150, "node_gap_ns": 20,
+                     "starved_ns": {None: 30}}
+    assert 1.0 - split["busy_ns"] / split["window_ns"] == 0.25
+
+
+def test_idle_split_starved_gaps_by_innermost_program_program_span():
+    """Op 1 runs 0-100. The gap 100-400 ends with op 2, launched at 350,
+    after the gap began: starved, split across the spans the host was in
+    (batch 100-150 inside score, score alone 150-200, table 200-300 and
+    upload 300-400 inside score). The gap 500-520 ends with op 3,
+    launched at 50 (queued): a node gap. The gap 600-650 ends with op 4,
+    whose launch is not in the profile: a node gap. The gap 700-800 ends
+    the window with nothing queued: starved, outside every span."""
+    events = [
+        _device_op(0, 100, 1), _runtime_call(-10, 1),
+        _device_op(400, 500, 2), _runtime_call(350, 2, "cudaGraphLaunch"),
+        _device_op(520, 600, 3), _runtime_call(50, 3),
+        _device_op(650, 700, 4),
+        _program_span("serving.score", 20, 480),
+        _program_span("serving.batch", 30, 150),
+        _program_span("serving.table", 200, 300),
+        _program_span("serving.upload", 300, 420),
+        _kineto_event("aten::mm", 360, 370, corr=2),
+    ]
+    split = profile_step.idle_split(events, (0, 800))
+    assert split["busy_ns"] == 330 and split["node_gap_ns"] == 70
+    assert split["starved_ns"] == {
+        "dgps.serving.batch": 50, "dgps.serving.score": 50,
+        "dgps.serving.table": 100, "dgps.serving.upload": 100, None: 100}
+    assert split["node_gap_ns"] + sum(split["starved_ns"].values()) == \
+        split["window_ns"] - split["busy_ns"]
+
+
+def test_idle_split_clips_to_the_window():
+    """An operation and a span that cross the window's edges count only
+    inside it; the gap at the window's start ends with an operation
+    launched after the window began: starved."""
+    events = [_device_op(-30, 10, 1), _runtime_call(-40, 1),
+              _device_op(60, 130, 2), _runtime_call(40, 2),
+              _program_span("fit.chunk", -100, 50)]
+    split = profile_step.idle_split(events, (0, 100))
+    assert split == {"window_ns": 100, "busy_ns": 50, "node_gap_ns": 0,
+                     "starved_ns": {"dgps.fit.chunk": 40, None: 10}}
+
+
 # the tools on this machine
 @pytest.mark.parametrize("tool", ["profile_step", "roofline", "peak_probe",
                                   "predict_bench"])
