@@ -27,7 +27,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``serve_cond``, with and without the sample) and K5
    (``conditional``, fused and sample, with the residuals Kxz and A) at
    the serving and training shapes (K5 'fused' with residuals at the
-   Adam-only step's [10240, 8], D=1), a ragged N, M=100 and M=200, K5's
+   Adam-only step's [10240, 8], D=1), a ragged N, M=100 and M=200, K4
+   alone at year's three scoring layers (d_in 91, 30, 30 to D 30, 30, 1
+   at N = 819,200; timed against its bound and its plain version, with
+   the plan K4 took, ``serve_cond.plan``), K5's
    sample element by element against the plain Philox stream, the
    recovered noise over 8.4M draws (mean, variance, share beyond 3 within
    5 standard errors), one seed bitwise repeatable and two seeds apart;
@@ -930,6 +933,11 @@ FUSED_CASES = [
     ("iw_vs_vi pin test set final layer, M=16", 500 * 512, 2, 16, 1, None),
     ("iw_vs_vi test set final layer, M=64", 500 * 2000, 2, 64, 1, None),
 ]
+# K4 alone at year's scoring layers (lggg-year: GP layers 91-30-30-1, M=128,
+# S=100 x 8192 rows; K5 is not on that path): (label, d_in, D, sample)
+YEAR_K4_CASES = [("year scoring layer 1", 91, 30, True),
+                 ("year scoring layer 2", 30, 30, True),
+                 ("year scoring layer 3", 30, 1, False)]
 K4_REPLACES = "dgps_with_iwvi_tpu/ops/pallas/serve_cond.py:73"
 K5_REPLACES = {"fused": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:51",
                "sample": "dgps_with_iwvi_tpu/ops/pallas/conditional.py:93"}
@@ -965,9 +973,11 @@ K5_TOL = {"sample": 1e-5, "mean": 1e-5, "var": 1e-5, "kxz": 1e-5, "a": 1e-5}
 
 def _cond_inputs(torch, gen, n, m, d_in, d):
     """Scaled xs, zs, var, Linv (of a random SPD gram), q_mu, Lq on the
-    card."""
-    xs = 0.5 * torch.randn((n, d_in), generator=gen, device="cuda")
-    zs = 0.5 * torch.randn((m, d_in), generator=gen, device="cuda")
+    card. Past 20 inputs the scale falls as d_in^-1/2, so that |x - z|^2
+    stays near 4 (at 0.5, 91 inputs give Kxz ~ e^-22 and A ~ 0)."""
+    scale = 0.5 if d_in <= 20 else (2.0 / d_in) ** 0.5
+    xs = scale * torch.randn((n, d_in), generator=gen, device="cuda")
+    zs = scale * torch.randn((m, d_in), generator=gen, device="cuda")
     var = torch.tensor(1.7, device="cuda")
     R = torch.randn((m, m), generator=gen, device="cuda", dtype=torch.float64)
     eye = torch.eye(m, device="cuda", dtype=torch.float64)
@@ -1217,6 +1227,37 @@ def fused_phase(torch, hopper, gen) -> tuple:
                 cases[name].insert(0, case)
             else:
                 cases[name].append(case)
+        del args, eps
+        torch.cuda.empty_cache()
+
+    # year's scoring layers: each against its plain version, timed with its
+    # bound and its plain version's time, with the plan K4 took
+    n = S_SERVE * B_SERVE
+    for label, d_in, d, with_eps in YEAR_K4_CASES:
+        args = _cond_inputs(torch, gen, n, M, d_in, d)
+        eps = (torch.randn((n, d), generator=gen, device="cuda") if with_eps
+               else None)
+
+        def k4_year(plain=False):
+            if plain:
+                with build.plain_versions():
+                    return k4.fused_conditional_infer(*args, eps)
+            return k4.fused_conditional_infer(*args, eps)
+
+        names = (("sample",) if with_eps else ()) + ("mean", "var")
+        errs, rels = _compare(torch, f"serve_cond [{label}]", k4_year(),
+                              k4_year(True), names, K4_TOL)
+        case = {"case": label, "shape": f"xs [{n},{d_in}], M={M}, D={d}",
+                "plan": k4.plan(d_in, M, d), "errs": errs, "rels": rels,
+                "max_abs_err": max(errs.values()),
+                "max_rel_err": max(rels.values()),
+                "ms": time_ms(torch, k4_year, 10),
+                "device_ms": device_ms(torch, k4_year),
+                "plain_ms": time_ms(torch, lambda: k4_year(True), 2, 1)}
+        case["bound_ms"], case["bound_by"] = cost.bound(
+            *cost.serve_cond(n, d_in, M, d, with_eps))
+        cases["serve_cond:sample" if with_eps else "serve_cond:infer"].append(
+            case)
         del args, eps
         torch.cuda.empty_cache()
 
@@ -3254,6 +3295,12 @@ AB_COND_CASES = [
      "K4", True, False, 10),
     ("'infer', serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "K4",
      False, False, 10),
+    ("'sample', year layer 1", S_SERVE * B_SERVE, 91, M, 30, "K4", True,
+     False, 10),
+    ("'sample', year layer 2", S_SERVE * B_SERVE, 30, M, 30, "K4", True,
+     False, 10),
+    ("'infer', year layer 3", S_SERVE * B_SERVE, 30, M, 1, "K4", False,
+     False, 10),
     ("'sample', serving inner layer", S_SERVE * B_SERVE, D_X + 1, M, D_X,
      "K5", True, False, 5),
     ("'fused', serving final layer", S_SERVE * B_SERVE, D_X, M, 1, "K5",
@@ -4468,9 +4515,17 @@ def _parent_libs(hopper, build, parent: str) -> dict:
             fail(f"nvcc of the parent's {name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out))
         for fn, (argtypes, restype) in sigs[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
+            if hasattr(lib, fn):  # else an export the parent lacks
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
         libs[name] = lib
+    if not hasattr(libs["serve_cond"], "serve_cond_plan"):
+        # a K4 without the `chain_l2zs` plan took `wide` where this one
+        # takes it
+        plan = build.library(hopper.serve_cond.NAME,
+                             sigs["serve_cond"]).serve_cond_plan
+        libs["serve_cond"].serve_cond_plan = (
+            lambda *shape: 2 if plan(*shape) == 1 else plan(*shape))
     return libs
 
 

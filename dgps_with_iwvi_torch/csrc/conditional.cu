@@ -454,10 +454,11 @@ int d_per_group(int tiles, int slots, const Layout& L, int D) {
 // The grid of conditional_kernel<RPT> for N rows: (row tiles, groups of
 // d), with the d per group; and the card's SM count. Sets the kernel's
 // shared memory attribute and queries the block slots once per (device,
-// size).
+// size). static: its caches stay this library's own (see
+// serve_cond.cu's launch_chain).
 template <int RPT>
-cudaError_t plan(const Layout& L, int N, int D, int device, dim3* grid,
-                 int* dpg, int* sms) {
+static cudaError_t plan(const Layout& L, int N, int D, int device, dim3* grid,
+                        int* dpg, int* sms) {
   static int cached_device = -1;
   static size_t cached_smem = 0;
   static int slots = 1, sm_count = 1;

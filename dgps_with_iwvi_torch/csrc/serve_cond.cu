@@ -46,10 +46,30 @@
 // conflicts). The q-variance of column tile n8 = t runs only over the k16
 // steps kk >= t / 2, a loop with fixed trip counts and no divergence. One
 // barrier per d (the ring); none in the rest of the chain. Row sums reduce
-// over the 4 lanes of a quad with shuffles, in a fixed order. At M > 128
-// the chain no longer fits in registers: a warp then keeps its rows' x,
-// Kxz and A in shared memory in f32 and reads the right-hand fragments from
-// device memory (`wide_kernel`, with the same tril skip).
+// over the 4 lanes of a quad with shuffles, in a fixed order.
+//
+// Two plans of that chain, one code (`chain_kernel<kZsShared>`), chosen on
+// the host from (d_in, M, D) by the bytes of shared memory each needs
+// (`plan_of`); a block may use 232,448:
+// - `chain` (kZsShared): everything above resident. Linv hi/lo 69,632
+//   bytes, the Lq ring 69,632, q_mu hi/lo 8,704 at D <= 32, zs hi/lo
+//   4 * 128 (kx + 8) and the per-warp output staging 4 * 1024 (2 D + 1):
+//   169,472 at (d_in, D) = (9, 8), 162,304 at (8, 1), 208,896 at (30, 30),
+//   170,496 at (30, 1). It fits up to kx = 64 at D = 30.
+// - `chain_l2zs`, where `chain` does not fit: the same without zs in shared
+//   memory; the gram's B fragments are read from the prep scratch with
+//   4-byte loads (L1/L2 hold zs hi/lo: 49 KB at kx = 96). 188,416 bytes at
+//   (91, 30), 190,464 at (128, 32): every d_in <= 128 with D <= 32.
+// The gram is ~10% of the chain's products at (91, 30); the q-variance
+// against the D tril(Lq_d), ~70%, is the same in both. What bounds both on
+// the H100 is not the work's bound: per 128-row tile a block re-streams
+// the 36 tiles of each tril(Lq_d) from L2 (0.55 MB at D = 30) with one
+// barrier per d, and mma.sync issues at a fraction of the tensor cores'
+// rate; `chain_l2zs` adds the gram's operand reads from L1/L2.
+// At M > 128, or where neither plan fits (D past ~40), the chain no longer
+// fits: a warp then keeps its rows' x, Kxz and A in shared memory in f32
+// and reads the right-hand fragments from device memory (`wide`,
+// `wide_kernel`, with the same tril skip).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -227,7 +247,7 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& h,
 // ---- chain_kernel: M <= 128 -------------------------------------------------
 
 struct ChainSmem {
-  bf16 *zh, *zl;    // [128][kx + 8]   zs
+  bf16 *zh, *zl;    // [128][kx + 8]   zs, in the `chain` plan only
   bf16 *lh, *ll;    // [128][kLdB]     Linv
   bf16 *qh, *ql;    // [dq][kLdB]      q_mu^T, dq = round_up(D, 16)
   bf16* lq;         // [2][128][kLdB]  tril(Lq_d), the ring
@@ -235,10 +255,12 @@ struct ChainSmem {
   float* mv;        // [kWarps][16 (2 D + 1)] per warp: mean, q-variance, sum A^2
 };
 
-__host__ __device__ inline size_t chain_smem_bytes(int kx, int D, ChainSmem* s,
+__host__ __device__ inline size_t chain_smem_bytes(int kx, int D, bool zs_shared,
+                                                   ChainSmem* s,
                                                    unsigned char* raw) {
   const int dq = round_up(D, 16);
-  const size_t nz = (size_t)kMC * (kx + 8), nl = (size_t)kMC * kLdB,
+  const size_t nz = zs_shared ? (size_t)kMC * (kx + 8) : 0,
+               nl = (size_t)kMC * kLdB,
                nq = (size_t)dq * kLdB;
   const size_t bf = 2 * nz + 2 * nl + 2 * nq + 2 * nl;
   const size_t bytes =
@@ -256,6 +278,20 @@ __host__ __device__ inline size_t chain_smem_bytes(int kx, int D, ChainSmem* s,
     s->mv = s->zz + kMC;
   }
   return bytes;
+}
+
+// load_b's fragments from a [n][k] array in device memory (the prep
+// scratch, which L1/L2 hold): 4-byte loads, as `warp_product` reads them.
+__device__ __forceinline__ void ldg_b(uint32_t (&b)[4],
+                                      const bf16* __restrict__ Y, int ld,
+                                      int n0, int k0, int lane) {
+  const unsigned int* p = reinterpret_cast<const unsigned int*>(
+      Y + (size_t)(n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3));
+  const int row8 = 4 * ld;  // 8 rows, in 4-byte words
+  b[0] = __ldg(p);
+  b[1] = __ldg(p + 4);
+  b[2] = __ldg(p + row8);
+  b[3] = __ldg(p + row8 + 4);
 }
 
 // cp.async of `rows` rows of `cols` bf16 (a multiple of 8) from a [rows][gld]
@@ -279,6 +315,9 @@ __device__ __forceinline__ void issue_lq(bf16* dst, const bf16* src) {
   }
 }
 
+// kZsShared: the `chain` plan, zs hi/lo in shared memory; else
+// `chain_l2zs`, the gram's zs fragments read from the scratch.
+template <bool kZsShared>
 __global__ void __launch_bounds__(32 * kWarps, 1)
 chain_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
              const void* __restrict__ scratch, const float* __restrict__ eps,
@@ -290,7 +329,7 @@ chain_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
       reinterpret_cast<const char*>(scratch) + L.zz_bytes);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ChainSmem sm;
-  chain_smem_bytes(L.kx, D, &sm, smem_raw);
+  chain_smem_bytes(L.kx, D, kZsShared, &sm, smem_raw);
   const int ldz = L.kx + 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -299,8 +338,10 @@ chain_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
   const bool resident = D <= 2;  // every Lq_d fits the ring: load it once
 
   // the right-hand operands, once per block; q_mu's rows past dn are zeros
-  copy_rows(sm.zh, ldz, B + L.zb_h, L.kx, kMC, L.kx);
-  copy_rows(sm.zl, ldz, B + L.zb_l, L.kx, kMC, L.kx);
+  if (kZsShared) {
+    copy_rows(sm.zh, ldz, B + L.zb_h, L.kx, kMC, L.kx);
+    copy_rows(sm.zl, ldz, B + L.zb_l, L.kx, kMC, L.kx);
+  }
   copy_rows(sm.lh, kLdB, B + L.lb_h, kMC, kMC, kMC);
   copy_rows(sm.ll, kLdB, B + L.lb_l, kMC, kMC, kMC);
   copy_rows(sm.qh, kLdB, B + L.qb_h, kMC, L.dn, kMC);
@@ -358,8 +399,13 @@ chain_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t bh[4], bl[4];
-        load_b(bh, sm.zh, ldz, np * 16, k0, lane);
-        load_b(bl, sm.zl, ldz, np * 16, k0, lane);
+        if (kZsShared) {
+          load_b(bh, sm.zh, ldz, np * 16, k0, lane);
+          load_b(bl, sm.zl, ldz, np * 16, k0, lane);
+        } else {
+          ldg_b(bh, B + L.zb_h, L.kx, np * 16, k0, lane);
+          ldg_b(bl, B + L.zb_l, L.kx, np * 16, k0, lane);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float(&c)[4] = acc[2 * np + h];
@@ -690,6 +736,60 @@ wide_kernel(const float* __restrict__ xs, const float* __restrict__ var_p,
   }
 }
 
+// ---- the host's choice of plan and the chain's launch ---------------------
+
+enum Plan { kChain = 0, kChainL2zs = 1, kWide = 2 };  // serve_cond_plan's codes
+
+// The plan of (d_in, M, D) and, for a chain plan, its shared memory in
+// *smem: `chain` wherever it fits, else `chain_l2zs`, else `wide`.
+inline Plan plan_of(const Layout& L, int D, size_t* smem) {
+  if (L.kp == kMC)
+    for (const bool zs_shared : {true, false}) {
+      *smem = chain_smem_bytes(L.kx, D, zs_shared, nullptr, nullptr);
+      if (*smem <= (size_t)kSmemMax) return zs_shared ? kChain : kChainL2zs;
+    }
+  return kWide;
+}
+
+// static: a function template's static locals are otherwise one object
+// across every library loaded in the process that defines the same
+// template (GNU unique symbols), as when two trees' builds are compared
+// in one process, and one library's cache would skip the other's
+// cudaFuncSetAttribute
+template <bool kZsShared>
+static cudaError_t launch_chain(size_t smem, int device, cudaStream_t s,
+                         const float* xs, const float* var,
+                         const void* scratch, const float* eps, float* mean,
+                         float* varo, float* samp, int N, int d_in, int M,
+                         int D) {
+  // the attribute and the block slots of the card, set and queried once
+  // per (device, shared memory size) of each instantiation: one scored
+  // batch may launch both
+  static int cached_device = -1;
+  static size_t cached_smem = 0;
+  static int slots = 1;
+  if (device != cached_device || smem != cached_smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        chain_kernel<kZsShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, chain_kernel<kZsShared>, 32 * kWarps, smem);
+    if (err != cudaSuccess) return err;
+    slots = std::max(1, sms * per_sm);
+    cached_device = device;
+    cached_smem = smem;
+  }
+  const int tiles = (N + kWarps * kRows - 1) / (kWarps * kRows);
+  const int grid = std::min(tiles, slots);
+  chain_kernel<kZsShared><<<grid, 32 * kWarps, smem, s>>>(
+      xs, var, scratch, eps, mean, varo, samp, N, d_in, M, D);
+  return cudaGetLastError();
+}
+
 }  // namespace k4_serve_cond
 
 using namespace k4_serve_cond;
@@ -699,6 +799,13 @@ extern "C" {
 // Bytes of the scratch `serve_cond_launch` takes.
 long long serve_cond_scratch_bytes(int d_in, int M, int D) {
   return (long long)Layout(d_in, M, D).total;
+}
+
+// Which plan `serve_cond_launch` takes at (d_in, M, D): 0 `chain`, 1
+// `chain_l2zs`, 2 `wide` (the header's design note).
+int serve_cond_plan(int d_in, int M, int D) {
+  size_t smem = 0;
+  return (int)plan_of(Layout(d_in, M, D), D, &smem);
 }
 
 // xs [N, d_in], zs [M, d_in], var [1], linv [M, M], qmu [M, D], lq [D, M, M]
@@ -724,34 +831,16 @@ int serve_cond_launch(const float* xs, const float* zs, const float* var,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t chain = chain_smem_bytes(L.kx, D, nullptr, nullptr);
-  if (L.kp == kMC && chain <= (size_t)kSmemMax) {
-    // the attribute and the block slots of the card, set and queried once
-    // per (device, shared memory size)
-    static int cached_device = -1;
-    static size_t cached_smem = 0;
-    static int slots = 1;
-    if (device != cached_device || chain != cached_smem) {
-      err = cudaFuncSetAttribute(chain_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)chain);
-      if (err != cudaSuccess) return (int)err;
-      int sms = 0, per_sm = 0;
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-      if (err != cudaSuccess) return (int)err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, chain_kernel, 32 * kWarps, chain);
-      if (err != cudaSuccess) return (int)err;
-      slots = std::max(1, sms * per_sm);
-      cached_device = device;
-      cached_smem = chain;
-    }
-    const int tiles = (N + kWarps * kRows - 1) / (kWarps * kRows);
-    const int grid = std::min(tiles, slots);
-    chain_kernel<<<grid, 32 * kWarps, chain, s>>>(xs, var, scratch, eps, mean,
-                                                   varo, samp, N, d_in, M, D);
-    return (int)cudaGetLastError();
+  size_t chain = 0;
+  switch (plan_of(L, D, &chain)) {
+    case kChain:
+      return (int)launch_chain<true>(chain, device, s, xs, var, scratch, eps,
+                                     mean, varo, samp, N, d_in, M, D);
+    case kChainL2zs:
+      return (int)launch_chain<false>(chain, device, s, xs, var, scratch, eps,
+                                      mean, varo, samp, N, d_in, M, D);
+    case kWide:
+      break;
   }
 
   const size_t per_warp = sizeof(float) * (size_t)warp_floats(d_in, M, D);

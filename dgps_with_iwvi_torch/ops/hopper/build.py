@@ -19,8 +19,11 @@ names the variant, counted under ``"<kernel>:<variant>"`` by
 kernel and variant by ``launch_costs`` with each launch's bound
 (``cost.bound``): launches run one after another, so the bound of a
 window is the sum of its launches' bounds, not the bound of their summed
-work. While a CUDA graph captures
-(``capturing``), a launch and its work are recorded into the graph's
+work. A wrapper whose launch function picks one of several designs (a
+plan) from the shapes names it too: ``plan_launches`` counts it under
+``"<kernel>:plan=<plan>"``, apart from the kernel's and variant's
+counts. While a CUDA graph captures (``capturing``), a launch, its work
+and its plan are recorded into the graph's
 tally instead, since a capture runs nothing; ``replayed`` adds the tally
 once per replay of the graph. All of this is host arithmetic at a launch
 or a capture; a replay adds a tally and nothing else.
@@ -55,6 +58,8 @@ _variant_launches: dict = {}
 COST_FIELDS = ("launches", "bytes", "bf16_ops", "f32_ops", "bound_ms",
                "ops_bound_ms")
 _costs: dict = {}
+# {"<kernel>:plan=<plan>": launches}
+_plans: dict = {}
 # tallies of the CUDA graphs being captured, innermost last; a list that
 # every thread sees, since autograd's device thread launches the backward
 _captures: list = []
@@ -94,6 +99,7 @@ def reset_launches() -> None:
         _launches[name] = 0
     _variant_launches.clear()
     _costs.clear()
+    _plans.clear()
 
 
 def launches() -> dict:
@@ -106,6 +112,12 @@ def variant_launches() -> dict:
     return dict(_variant_launches)
 
 
+def plan_launches() -> dict:
+    """{"<kernel>:plan=<plan>": launches since the last reset_launches()}
+    of the launches that named their plan."""
+    return dict(_plans)
+
+
 def launch_costs() -> dict:
     """{"<kernel>" or "<kernel>:<variant>": {"launches", "bytes",
     "bf16_ops", "f32_ops", "bound_ms", "ops_bound_ms"}} summed over the
@@ -115,15 +127,21 @@ def launch_costs() -> dict:
     return {key: dict(zip(COST_FIELDS, v)) for key, v in _costs.items()}
 
 
-def count_launch(name: str, variant: str | None = None, work=None) -> None:
+def count_launch(name: str, variant: str | None = None, work=None,
+                 plan: str | None = None) -> None:
     """Count one launch of kernel `name` (and of its `variant`), with the
-    call's work (``cost.Work``) where given."""
+    call's work (``cost.Work``) where given, and under its `plan` where
+    given."""
     keys = [name] if variant is None else [name, f"{name}:{variant}"]
     if work is not None:
         ms, by = cost.bound(*work)
         work = (1, *work, ms, ms if by == "operations" else 0.0)
-    if _captures:
-        tally = _captures[-1]
+    tally = _captures[-1] if _captures else None
+    if plan is not None:
+        plans = _plans if tally is None else tally.plans
+        key = f"{name}:plan={plan}"
+        plans[key] = plans.get(key, 0) + 1
+    if tally is not None:
         for key in keys:
             tally[key] = tally.get(key, 0) + 1
         if work is not None:
@@ -150,11 +168,13 @@ def _add(tally: dict) -> None:
 
 class Tally(dict):
     """A capture's launches {kernel or "<kernel>:<variant>": launches},
-    with their work in ``costs`` (keyed as ``launch_costs``)."""
+    with their work in ``costs`` (keyed as ``launch_costs``) and their
+    plans in ``plans`` (keyed as ``plan_launches``)."""
 
     def __init__(self):
         super().__init__()
         self.costs: dict = {}
+        self.plans: dict = {}
 
 
 @contextlib.contextmanager
@@ -173,11 +193,13 @@ def capturing():
 
 
 def replayed(tally: Tally) -> None:
-    """Count the launches, and their work, of one replay of a graph whose
-    capture recorded `tally`."""
+    """Count the launches, their work and their plans, of one replay of a
+    graph whose capture recorded `tally`."""
     _add(tally)
     for key, values in tally.costs.items():
         _add_work(_costs, key, values)
+    for key, n in tally.plans.items():
+        _plans[key] = _plans.get(key, 0) + n
 
 
 def _nvcc() -> str:

@@ -17,6 +17,13 @@ dot3 is the hi/lo bf16 split without the lo*lo term (``precision``'s
 ``high`` class). Only mean, var and the sample leave the kernel: Kxz and A
 never reach device memory.
 
+The launch takes one of three plans from (d_in, M, D) (the kernel's
+header): ``chain``, the row-tile chain with every right-hand operand in
+shared memory; ``chain_l2zs``, the same chain reading zs from L2 where
+that does not fit (d_in above 64 at D=30, say); ``wide`` past M=128.
+Each launch is counted under its plan too, as ``"serve_cond:plan=<plan>"``
+in ``build.plan_launches()``.
+
 Inference only, as in the reference (l.116): ``fused_conditional_infer``
 raises when autograd would need a gradient through it. The plain version,
 ``fused_conditional_infer_plain``, rounds at the same places
@@ -60,9 +67,20 @@ def fused_conditional_infer_plain(xs, zs, var, linv, q_mu, lq, eps=None):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "serve_cond_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "serve_cond_plan": ([_I] * 3, _I),
     "serve_cond_scratch_bytes": ([_I] * 3, ctypes.c_longlong),
     "serve_cond_error_string": ([_I], ctypes.c_char_p),
 }
+
+
+# serve_cond_plan's codes
+PLANS = ("chain", "chain_l2zs", "wide")
+
+
+def plan(d_in: int, m: int, d: int) -> str:
+    """The plan K4 takes at (d_in, M, D); builds the library on first
+    use."""
+    return PLANS[build.library(NAME, SIGNATURES).serve_cond_plan(d_in, m, d)]
 
 
 def _launch(xs, zs, var, linv, q_mu, lq, eps):
@@ -86,7 +104,8 @@ def _launch(xs, zs, var, linv, q_mu, lq, eps):
     build.check(lib, NAME, err)
     sample = eps is not None
     build.count_launch(NAME, "sample" if sample else "infer",
-                       cost.serve_cond(n, d_in, m, d, sample))
+                       cost.serve_cond(n, d_in, m, d, sample),
+                       plan=PLANS[lib.serve_cond_plan(d_in, m, d)])
     return (mean, v) if eps is None else (samp, mean, v)
 
 

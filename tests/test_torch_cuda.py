@@ -374,8 +374,12 @@ def test_non_whitened_step_runs_the_qvar_variants(gen):
 
 
 def _cond_inputs(gen, n, m, d_in, d, dense_lq=False):
-    xs = 0.5 * torch.randn((n, d_in), generator=gen, device="cuda")
-    zs = 0.5 * torch.randn((m, d_in), generator=gen, device="cuda")
+    # past 20 inputs the scale falls as d_in^-1/2, so that |x - z|^2 stays
+    # near 4: at 0.5 year's 91 inputs would give Kxz ~ e^-22, A ~ 0 and a
+    # variance of var alone, which no fault in the chain would move
+    scale = 0.5 if d_in <= 20 else (2.0 / d_in) ** 0.5
+    xs = scale * torch.randn((n, d_in), generator=gen, device="cuda")
+    zs = scale * torch.randn((m, d_in), generator=gen, device="cuda")
     var = torch.tensor(1.7, device="cuda")
     R = torch.randn((m, m), generator=gen, device="cuda", dtype=torch.float64)
     Lk = torch.linalg.cholesky(R @ R.T + m * torch.eye(m, device="cuda",
@@ -394,9 +398,12 @@ def _rel_close(got, ref, rel):
 
 # any M: 20 and 100 pad inside the kernels; past 128 K4 takes its wide
 # kernel and K5 its 32-row tiles, 200 and 264 with two and three column
-# chunks
+# chunks. K4 also at year's scoring layers, (91, 30), (30, 30), (30, 1),
+# and the widest chain, (128, 32): d_in 91 and 128 at M <= 128 take the
+# chain without zs in shared memory
 @pytest.mark.parametrize("m", [20, 100, 128, 200, 264])
-@pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1)])
+@pytest.mark.parametrize("d_in,d", [(9, 8), (8, 1), (91, 30), (30, 30),
+                                    (128, 32)])
 @pytest.mark.parametrize("with_eps", [False, True])
 def test_serve_cond_kernel_matches_plain(gen, m, d_in, d, with_eps):
     n = 1000  # ragged: not a multiple of a block's rows
@@ -440,20 +447,56 @@ COND_EDGES = [(1, 9, 128, 8, False), (63, 9, 128, 8, False),
               (1000, 20, 128, 8, False), (1000, 20, 264, 1, False),
               (1000, 9, 128, 8, True), (1000, 9, 100, 1, True),
               (1000, 9, 200, 8, True)]
+# K4 alone, with a dense Lq at N = 65 and 1000: year's first and second
+# scoring layers, the widest chain and year's first at M = 100 (the chain
+# without zs in shared memory, but for (30, 30))
+SERVE_COND_EDGES = COND_EDGES + [
+    (n, d_in, m, d, True) for n in (65, 1000)
+    for d_in, m, d in ((91, 128, 30), (30, 128, 30), (128, 128, 32),
+                       (91, 100, 30))]
 
 
-@pytest.mark.parametrize("n,d_in,m,d,dense_lq", COND_EDGES)
+@pytest.mark.parametrize("n,d_in,m,d,dense_lq", SERVE_COND_EDGES)
 def test_serve_cond_kernel_edges(gen, n, d_in, m, d, dense_lq):
-    """K4 against its plain version, and bitwise equal across two launches."""
+    """K4 with and without eps against its plain version, and bitwise
+    equal across two launches."""
     args = _cond_inputs(gen, n, m, d_in, d, dense_lq)
     eps = torch.randn((n, d), generator=gen, device="cuda")
     got = serve_cond.fused_conditional_infer(*args, eps)
+    bare = serve_cond.fused_conditional_infer(*args)
     with build.plain_versions():
         ref = serve_cond.fused_conditional_infer(*args, eps)
-    for g, r, tol in zip(got, ref, (2e-3, 1e-4, 2e-3)):
+        ref_bare = serve_cond.fused_conditional_infer(*args)
+    for g, r, tol in zip(got + bare, ref + ref_bare,
+                         (2e-3, 1e-4, 2e-3, 1e-4, 2e-3)):
         _rel_close(g, r, tol)
     again = serve_cond.fused_conditional_infer(*args, eps)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_serve_cond_counts_each_launch_under_its_plan(gen):
+    """K4's launch takes the chain with zs in shared memory where it fits
+    (kin8nm's inner layer), the chain that reads zs from L2 where it does
+    not (year's first layer) and the wide kernel past M = 128; each launch
+    is counted once under its plan, the kernel's and variant's counts as
+    without one."""
+    cases = [((91, 128, 30), "chain_l2zs"), ((9, 128, 8), "chain"),
+             ((9, 200, 8), "wide")]
+    build.reset_launches()
+    for (d_in, m, d), plan in cases:
+        assert serve_cond.plan(d_in, m, d) == plan
+        args = _cond_inputs(gen, 300, m, d_in, d)
+        eps = torch.randn((300, d), generator=gen, device="cuda")
+        serve_cond.fused_conditional_infer(*args, eps)
+    torch.cuda.synchronize()
+    assert build.plan_launches() == {f"serve_cond:plan={p}": 1
+                                     for _, p in cases}
+    assert build.launches()["serve_cond"] == 3
+    assert build.variant_launches() == {"serve_cond:sample": 3}
+    # year's other two scoring layers and kin8nm's final one keep the chain
+    assert [serve_cond.plan(*s) for s in ((30, 128, 30), (30, 128, 1),
+                                          (8, 128, 1))] == ["chain"] * 3
+    build.reset_launches()
 
 
 @pytest.mark.parametrize("n,d_in,m,d,dense_lq", COND_EDGES)

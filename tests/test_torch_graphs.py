@@ -16,6 +16,7 @@ for the card, or copy from host memory, inside a captured step.
 import dataclasses
 import importlib
 import tomllib
+import types
 from pathlib import Path
 
 import numpy as np
@@ -259,6 +260,43 @@ def test_graph_counts_its_launches_once_per_replay(monkeypatch):
     assert outer == {"chol_inv": 1}
     assert counted() == {k: 4 * v for k, v in once.items()}
     build.reset_launches()
+
+
+def test_plans_are_counted_apart_once_per_replay(monkeypatch):
+    """A launch's plan is counted under "<kernel>:plan=<plan>" in
+    ``plan_launches`` and nowhere else: the kernel's and variant's counts
+    are those of a launch without one; a capture records it into the
+    graph's tally, each replay adds it once."""
+    def launches():
+        build.count_launch("serve_cond", "sample", plan="chain_l2zs")
+        build.count_launch("serve_cond", "sample", plan="chain")
+        build.count_launch("serve_cond", "infer", plan="chain")
+        return torch.ones(1)
+
+    monkeypatch.setattr(graphs, "capture_stream", lambda device: None)
+    monkeypatch.setattr(graphs, "_warm_up", lambda fn, stream, device: fn())
+    monkeypatch.setattr(graphs, "_capture", lambda graph, fn, stream: fn())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        lambda: types.SimpleNamespace(replay=lambda: None))
+    build.reset_launches()
+    try:
+        g = graphs.Graph(launches, device="cpu")
+        once = {"serve_cond:plan=chain_l2zs": 1, "serve_cond:plan=chain": 2}
+        assert g.launches == {"serve_cond": 3, "serve_cond:sample": 2,
+                              "serve_cond:infer": 1}
+        assert g.launches.plans == once
+        for n in range(1, 4):   # the warm-up ran for real
+            assert build.plan_launches() == {k: n * v
+                                             for k, v in once.items()}
+            assert build.launches()["serve_cond"] == 3 * n
+            assert build.variant_launches() == {"serve_cond:sample": 2 * n,
+                                                "serve_cond:infer": n}
+            g.replay()
+        build.count_launch("serve_cond", "infer")   # no plan named
+        assert build.plan_launches() == {k: 4 * v for k, v in once.items()}
+    finally:
+        build.reset_launches()
+    assert build.plan_launches() == {}
 
 
 class _Cycle:
