@@ -8,14 +8,12 @@ the benchmark's own runs).
 In one process, for each of `--seeds` seeds: the program's numbers, from
 a run of the cell with a window of `--window` seconds and a warm phase
 of `--warm` seconds (the checked steps of a training cell, the sampled
-calls of a scoring cell; the window's rate is not read). For the first `--controls` of those seeds: each
-control, the reference put in the program's place and computed with its
-products' operands rounded to TF32 and to bfloat16, and for a training
-cell the fault that leaves half of each batch out (the objective's mean
-over the other half), all held to the float64 reference by the same
-comparison. Writes {"program": [...], "tf32": [...], "bf16": [...],
-"half_batch": [...]} of {name: number} per seed, and the largest and
-smallest reading of each.
+calls of a scoring cell; the window's rate is not read). For the first
+`--controls` of those seeds: each control the cell's driver declares
+(``CONTROLS``, its numbers from ``control_numbers``), put in the
+program's place and held to the float64 reference by the same
+comparison. Writes {"program": [...], <control>: [...]} of {name:
+number} per seed, and the largest and smallest reading of each.
 """
 
 import time
@@ -34,60 +32,18 @@ BASE_SEED = 7_000_000_000
 
 
 def control_numbers(cell, mode: str) -> dict:
-    """The numbers of one control or fault in the program's place; a
-    control whose factorization fails has failed every number."""
+    """The numbers of one control or fault in the program's place, as the
+    cell's driver declares it (``control_numbers``); a control whose
+    factorization fails has failed every number (``NUMBERS``)."""
     import torch
 
-    try:
-        return _control_numbers(cell, mode)
-    except torch.linalg.LinAlgError:
-        return _inf(cell)
-
-
-def _control_numbers(cell, mode: str) -> dict:
-    from perfbench import check, traffic
+    from perfbench import traffic
 
     drive = traffic.driver(cell.traffic["kind"])
-    data, weights = traffic.make_inputs(cell)
-    if cell.traffic["kind"] == "train":
-        draws = drive.draws(cell, data)
-        ref = drive.reference(cell, data, weights, draws)
-        got_draws, got_mode = draws, mode
-        if mode == "half_batch":
-            half = cell.traffic["minibatch_size"] // 2
-            got_draws = [(idx[:half], [None if e is None else e[:, :half]
-                                       for e in eps]) for idx, eps in draws]
-            got_mode = "f64"
-        got = drive.reference(cell, data, weights, got_draws, got_mode)
-        # the control in the program's place: its own states after the
-        # steps before each compared one, held to the reference there
-        states = [drive.reference(cell, data, weights, got_draws[:t],
-                                  got_mode)["params"]
-                  for t in range(1, check.GRAD_STEPS)]
-        got_grads = drive.step_grads(cell, data, weights, got["grads"][0],
-                                     states, got_draws, got_mode)
-        ref_grads = drive.step_grads(cell, data, weights, ref["grads"][0],
-                                     states, draws)
-        numbers, readings = check.train_numbers(
-            got["losses"], got_grads, ref_grads, got["start"],
-            got["params"], ref)
-        return {**numbers, **readings}
-    from perfbench import inputs
-
-    tables = inputs.make_tables(data, cell.traffic["tables"],
-                                cell.traffic["table_rows"],
-                                cell.seeds.data + 1)
-    pairs = [(drive.reference(cell, weights, tables, c, mode),
-              drive.reference(cell, weights, tables, c))
-             for c in range(cell.traffic["checked_calls"])]
-    return check.score_numbers(pairs)[0]
-
-
-def _inf(cell) -> dict:
-    names = (("loss_gap", "grad_gap", "change_gap", "nat_change_gap")
-             if cell.traffic["kind"] == "train"
-             else ("mean_gap", "var_gap", "logdens_gap"))
-    return dict.fromkeys(names, float("inf"))
+    try:
+        return drive.control_numbers(cell, mode)
+    except torch.linalg.LinAlgError:
+        return dict.fromkeys(drive.NUMBERS, float("inf"))
 
 
 def main(argv=None) -> int:
@@ -110,17 +66,15 @@ def main(argv=None) -> int:
     mix = dict(json.loads(files["traffic"].read_text()),
                warm_seconds=a.warm)
     device = torch.device("cuda")
+    drive = traffic.driver(mix["kind"])
+    modes = list(drive.CONTROLS)
     out = {"workload": a.workload, "card": torch.cuda.get_device_name(0),
-           "program": [], "tf32": [], "bf16": []}
-    modes = ["tf32", "bf16"]
-    if mix["kind"] == "train":
-        modes.append("half_batch")
-        out["half_batch"] = []
+           "program": [], **{mode: [] for mode in modes}}
     for j in range(a.seeds):
         seed = a.base_seed + j
         cell = traffic.Cell(a.workload, cfg, mix, inputs.Seeds.of(seed),
                             a.window, False, device, time.perf_counter())
-        res = traffic.driver(mix["kind"]).run(cell)
+        res = drive.run(cell)
         nums = {**res.numbers, **res.readings}
         out["program"].append({"seed": seed, **nums})
         print("program", seed, nums, file=sys.stderr, flush=True)

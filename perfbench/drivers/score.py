@@ -12,6 +12,7 @@ thread (``run.py``) the loop held its tail from its first seconds.
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -19,6 +20,24 @@ import torch
 
 from perfbench import check, inputs, system, tracing, traffic
 from perfbench.reference import dgp_ref
+
+NUMBERS = ("mean_gap", "var_gap", "logdens_gap")
+# the reference with its products' operands rounded to TF32 and to
+# bfloat16
+CONTROLS = ("tf32", "bf16")
+DRIVES = "score"
+REFERENCE = dgp_ref
+
+
+def shrink(cfg: dict, mix: dict) -> tuple:
+    """(cfg, mix) at the CPU tests' size: 2,000 rows, K=4, S=8 and two
+    128-row tables of two batches, no warm phase."""
+    cfg, mix = copy.deepcopy(cfg), copy.deepcopy(mix)
+    cfg["dataset"].update(N=2000)
+    cfg["model"].update(num_iw_samples=4)
+    mix.update(num_samples=8, table_rows=128, batch_rows=64, tables=2,
+               warm_seconds=0, reference_block_rows=32)
+    return cfg, mix
 
 
 def call_seed(cell: traffic.Cell, c: int) -> int:
@@ -136,3 +155,17 @@ def reference(cell: traffic.Cell, weights, tables, c: int,
             torch.as_tensor(Y[sl], device=device), eps,
             dgp_ref.Arith(mode), tr["reference_block_rows"]))
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def control_numbers(cell: traffic.Cell, mode: str) -> dict:
+    """The numbers of one control in the program's place (``CONTROLS``):
+    the reference in `mode` on the first ``checked_calls`` calls, held to
+    the float64 reference by the same comparison."""
+    data, weights = traffic.make_inputs(cell)
+    tables = inputs.make_tables(data, cell.traffic["tables"],
+                                cell.traffic["table_rows"],
+                                cell.seeds.data + 1)
+    pairs = [(reference(cell, weights, tables, c, mode),
+              reference(cell, weights, tables, c))
+             for c in range(cell.traffic["checked_calls"])]
+    return check.score_numbers(pairs)[0]

@@ -21,10 +21,17 @@ window's seconds. Why ``warm_seconds``: a new process on the card ran
 its first 5 to 15 s of full training load 10-13% slower, then held its
 rate within 0.1% (5 s blocks over 60 s); the length of that slow phase
 varied from run to run, up to 15 s.
+
+A mix whose ``minibatch_size`` is at least the training rows runs the
+port's full-batch step (every row, in order; the q-variance and solve
+classes as the configuration's ``precision.full_batch_precision`` says,
+``auto`` where absent), and the checked steps' draws (``draws``) follow
+it.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -32,6 +39,14 @@ import torch
 
 from perfbench import check, system, tracing, traffic
 from perfbench.reference import dgp_ref
+
+NUMBERS = ("loss_gap", "grad_gap", "change_gap", "nat_change_gap")
+# the reference with its products' operands rounded to TF32 and to
+# bfloat16, and the fault that leaves half of each batch out (the
+# objective's mean over the other half)
+CONTROLS = ("tf32", "bf16", "half_batch")
+DRIVES = "fit"
+REFERENCE = dgp_ref
 
 
 class WindowClosed(Exception):
@@ -56,6 +71,31 @@ def stages(tr: dict) -> list:
     return lead
 
 
+def shrink(cfg: dict, mix: dict) -> tuple:
+    """(cfg, mix) at the CPU tests' size: 2,000 rows, K=4, chunks of 3
+    steps and no warm phase."""
+    cfg, mix = copy.deepcopy(cfg), copy.deepcopy(mix)
+    cfg["dataset"].update(N=2000)
+    cfg["model"].update(num_iw_samples=4)
+    mix.update(steps_per_call=3, lead_in=[[1, 3], [3, 6]], warm_seconds=0)
+    return cfg, mix
+
+
+def draws(cell: traffic.Cell, data) -> list:
+    """The draws of the checked steps, from a generator of the run's
+    seed, as the port's step draws them: a minibatch smaller than the
+    training rows draws its rows, then each layer's noise; the full-batch
+    step (a minibatch of at least the training rows) takes every row in
+    order and draws only the noise, so the data scale N / B is 1."""
+    n, mb = data.X.shape[0], cell.traffic["minibatch_size"]
+    K = cell.cfg["model"]["num_iw_samples"]
+    gen = torch.Generator(device=cell.device).manual_seed(cell.seeds.run)
+    rows = torch.arange(n, device=cell.device)
+    return [(rows, dgp_ref.draw_noise(gen, n, K, cell.specs)) if mb >= n
+            else dgp_ref.draw_train(gen, n, mb, K, cell.specs)
+            for _ in range(cell.traffic["checked_steps"])]
+
+
 def run(cell: traffic.Cell) -> traffic.Outcome:
     tr, spec = cell.traffic, cell.cfg["train"]
     lead = stages(tr)
@@ -67,7 +107,9 @@ def run(cell: traffic.Cell) -> traffic.Outcome:
     spc, n_check = tr["steps_per_call"], tr["checked_steps"]
     tc, init = system.trainer(config, dict(
         lr=spec["lr"], gamma=spec["gamma"], natgrad=spec["natgrad"],
-        schedule=spec["schedule"], minibatch_size=tr["minibatch_size"]))
+        schedule=spec["schedule"], minibatch_size=tr["minibatch_size"],
+        full_batch_precision=cell.cfg["precision"].get(
+            "full_batch_precision", "auto")))
     state = init(params)
     named = system.leaves(state, specs)
     start = {k: v.detach().clone() for k, v in named.items()}
@@ -157,16 +199,6 @@ def run(cell: traffic.Cell) -> traffic.Outcome:
                            {"steps": steps}, trace, peak, numbers, readings)
 
 
-def draws(cell: traffic.Cell, data) -> list:
-    """The draws of the checked steps, from a generator of the run's seed."""
-    gen = torch.Generator(device=cell.device).manual_seed(cell.seeds.run)
-    return [dgp_ref.draw_train(gen, data.X.shape[0],
-                               cell.traffic["minibatch_size"],
-                               cell.cfg["model"]["num_iw_samples"],
-                               cell.specs)
-            for _ in range(cell.traffic["checked_steps"])]
-
-
 def reference(cell: traffic.Cell, data, weights, draws, mode="f64") -> dict:
     spec = cell.cfg["train"]
     return dgp_ref.train(weights, cell.specs, data.X, data.Y, draws,
@@ -206,3 +238,32 @@ def step_grads(cell: traffic.Cell, data, weights, first: dict,
         reference(cell, data, state_weights(weights, s, cell.specs),
                   draws[t:t + 1], mode)["grads"][0]
         for t, s in enumerate(states, 1)]
+
+
+def control_numbers(cell: traffic.Cell, mode: str) -> dict:
+    """The numbers of one control in the program's place (``CONTROLS``),
+    held to the float64 reference by the same comparison. The half-batch
+    fault takes the first half of each step's rows."""
+    data, weights = traffic.make_inputs(cell)
+    steps_drawn = draws(cell, data)
+    ref = reference(cell, data, weights, steps_drawn)
+    got_draws, got_mode = steps_drawn, mode
+    if mode == "half_batch":
+        got_draws = [(idx[:len(idx) // 2],
+                      [None if e is None else e[:, :len(idx) // 2]
+                       for e in eps]) for idx, eps in steps_drawn]
+        got_mode = "f64"
+    got = reference(cell, data, weights, got_draws, got_mode)
+    # the control in the program's place: its own states after the
+    # steps before each compared one, held to the reference there
+    states = [reference(cell, data, weights, got_draws[:t],
+                        got_mode)["params"]
+              for t in range(1, check.GRAD_STEPS)]
+    got_grads = step_grads(cell, data, weights, got["grads"][0], states,
+                           got_draws, got_mode)
+    ref_grads = step_grads(cell, data, weights, ref["grads"][0], states,
+                           steps_drawn)
+    numbers, readings = check.train_numbers(
+        got["losses"], got_grads, ref_grads, got["start"], got["params"],
+        ref)
+    return {**numbers, **readings}

@@ -20,9 +20,10 @@ The noise: both sides draw from a generator of the same seed. Where the
 program draws, in this order, is part of what it serves: a training step
 draws its B minibatch rows (uniform, with replacement), then each layer's
 standard normals in layer order ([K, B, d_w] for the latent layer,
-[K, B, d_out] for each inner GP layer); a scored batch draws [S, B, d_w],
-then [S, B, d_out] per inner GP layer. ``draw_train`` and ``draw_score``
-make the same draws.
+[K, B, d_out] for each inner GP layer); a full-batch step (B at least
+the training rows) draws no rows, only the normals over every row; a
+scored batch draws [S, B, d_w], then [S, B, d_out] per inner GP layer.
+``draw_train``, ``draw_noise`` and ``draw_score`` make the same draws.
 """
 
 from __future__ import annotations
@@ -240,8 +241,16 @@ def neg_iw_elbo(weights, specs, X, Y, eps, num_data: int, ar: Arith, *,
 def draw_train(gen: torch.Generator, num_data: int, batch: int, K: int,
                specs: list) -> tuple:
     """One training step's draws: (rows [B], noise per layer)."""
+    idx = torch.randint(0, num_data, (batch,), generator=gen,
+                        device=gen.device)
+    return idx, draw_noise(gen, batch, K, specs)
+
+
+def draw_noise(gen: torch.Generator, batch: int, K: int,
+               specs: list) -> list:
+    """One training step's noise per layer over `batch` rows, after its
+    row draw (a full-batch step draws no rows: this alone)."""
     dev = gen.device
-    idx = torch.randint(0, num_data, (batch,), generator=gen, device=dev)
     eps = []
     for spec in specs:
         if spec[0] == "L":
@@ -252,7 +261,7 @@ def draw_train(gen: torch.Generator, num_data: int, batch: int, K: int,
         else:
             eps.append(torch.randn((K, batch, spec[2]), generator=gen,
                                    device=dev))
-    return idx, eps
+    return eps
 
 
 def draw_score(gen: torch.Generator, S: int, batch: int, specs: list):

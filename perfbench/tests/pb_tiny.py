@@ -1,8 +1,8 @@
 """Shared helpers of the benchmark's CPU tests: each cell of
-BENCHMARK.json shrunk to a size a test run holds (the same layer stack,
-widths, M, batch, mix and limits, over 2,000 rows, K=4 samples and
-128-row tables), run on the CPU through the harness with the chip check
-skipped."""
+BENCHMARK.json shrunk to a size a test run holds (its driver's
+``shrink``: the same layer stack, widths, M, batch, mix and limits, over
+2,000 rows and K=4 samples), run on the CPU through the harness with the
+chip check skipped."""
 
 import json
 import sys
@@ -15,25 +15,42 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from perfbench import harness  # noqa: E402
+from perfbench import harness, traffic  # noqa: E402
 
 BENCH = harness.load_benchmark(ROOT)
 CELLS = [w["name"] for w in BENCH["workloads"]]
 SEED = 2 ** 33 + 7
 
 
+def mix_of(cell: str) -> dict:
+    return json.loads(harness.files_of(ROOT, BENCH, cell)["traffic"]
+                      .read_text())
+
+
+def driver_of(cell: str):
+    """The driver module of a cell's traffic kind."""
+    return traffic.driver(mix_of(cell)["kind"])
+
+
 def shrink(cfg: dict, mix: dict) -> tuple:
-    cfg = json.loads(json.dumps(cfg))
-    mix = json.loads(json.dumps(mix))
-    cfg["dataset"].update(N=2000)
-    cfg["model"].update(num_iw_samples=4)
-    if mix["kind"] == "train":
-        mix.update(steps_per_call=3, lead_in=[[1, 3], [3, 6]], warm_seconds=0)
-    else:
-        mix.update(num_samples=8, table_rows=128, batch_rows=64, tables=2,
-                   warm_seconds=0,
-                   reference_block_rows=32)
-    return cfg, mix
+    return traffic.driver(mix["kind"]).shrink(cfg, mix)
+
+
+def check_cell_files(files: dict) -> None:
+    """A cell's files are there: its configuration and mix, the driver of
+    the mix's kind, a limit for each number that driver compares, and a
+    reader for each of its per-layer metrics."""
+    for key in ("config", "traffic", "limits"):
+        assert files[key].is_file(), files[key]
+    mix = json.loads(files["traffic"].read_text())
+    drive = traffic.driver(mix["kind"])
+    assert callable(drive.run)
+    limits = json.loads(files["limits"].read_text())
+    assert set(limits) == set(drive.NUMBERS)
+    assert files["metrics"]
+    for name, path in files["metrics"].items():
+        assert path.is_file(), path
+        assert callable(harness.load_reader(path))
 
 
 @pytest.fixture

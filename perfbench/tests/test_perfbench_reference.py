@@ -8,11 +8,14 @@ import json
 import pytest
 import torch
 
-from pb_tiny import BENCH, ROOT, shrink
+from pb_tiny import BENCH, ROOT, driver_of, mix_of
 from perfbench import inputs, system
 from perfbench.reference import dgp_ref
 
-CONFIGS = [c["name"] for c in BENCH["configs"]]
+# the configurations whose cells' drivers compare against this reference
+CELL_OF = {w["config"]: w["name"] for w in BENCH["workloads"]
+           if driver_of(w["name"]).REFERENCE is dgp_ref}
+CONFIGS = sorted(CELL_OF)
 
 
 def _tree64(tree):
@@ -26,7 +29,8 @@ def _tree64(tree):
 def _setup(name):
     cfg = json.loads((ROOT / "perfbench" / "configs"
                       / f"{name}.json").read_text())
-    cfg, _ = shrink(cfg, {"kind": "train"})
+    cell = CELL_OF[name]
+    cfg, _ = driver_of(cell).shrink(cfg, mix_of(cell))
     data = inputs.make_data(cfg["dataset"], 11, torch.device("cpu"))
     specs = dgp_ref.layer_specs(cfg["model"], data.X.shape[1], 1)
     weights = inputs.make_weights(specs, cfg["model"], data.X, 1, 12)

@@ -1,11 +1,23 @@
 """The general generator of traffic: what every kind of mix shares.
 
 A mix (``traffic/<name>.json``) names its ``kind``; the driver of that
-kind, ``drivers/<kind>.py``, exposes ``run(cell) -> Outcome`` and is
-found by that name (``driver``), so a new kind of traffic is a new file
-there. Each driver makes its inputs and weights from the seed, warms up
-every shape the mix uses (that is the set-up), then measures for the
-window's seconds (``--trace 0``) or traces a fixed amount of the same
+kind, ``drivers/<kind>.py``, is found by that name (``driver``), so a new
+kind of traffic is a new file there. It declares all that the rest of
+the benchmark knows of the kind:
+
+- ``run(cell) -> Outcome``: one run;
+- ``NUMBERS``: the names of the numbers ``correct`` compares, the keys
+  of a cell's ``limits/<cell>.json``;
+- ``CONTROLS``: the modes ``calibrate.py`` puts in the program's place;
+- ``control_numbers(cell, mode)``: the numbers of one of them;
+- ``shrink(cfg, mix)``: (cfg, mix) at the CPU tests' size;
+- ``DRIVES``: the port's entry point it drives, "fit" or "score", where
+  the tests plant their faults;
+- ``REFERENCE``: the reference module it compares against.
+
+Each driver makes its inputs and weights from the seed, warms up every
+shape the mix uses (that is the set-up), then measures for the window's
+seconds (``--trace 0``) or traces a fixed amount of the same
 work (``--trace 1``). After the window it reads the device's memory
 peak, frees the program's state and runs the reference on what the
 window produced.
@@ -47,8 +59,15 @@ class Cell:
 
     @property
     def specs(self) -> list:
-        ds = self.cfg["dataset"]
-        return dgp_ref.layer_specs(self.cfg["model"], ds["D"], 1)
+        return specs_of(self.cfg)
+
+
+def specs_of(cfg: dict) -> list:
+    """The layer stack of a configuration: its dataset's D inputs, and a
+    final GP layer of ``model.outputs`` columns (1 where absent)."""
+    model = cfg["model"]
+    return dgp_ref.layer_specs(model, cfg["dataset"]["D"],
+                               model.get("outputs", 1))
 
 
 @dataclasses.dataclass

@@ -4,10 +4,10 @@ Frozen copies of the formulas the port carries for itself
 (``utils/flops.py`` ``step_cost`` and ``ops/hopper/cost.py``), restricted
 to the models the benchmark runs (RBF kernel, inducing points, whitened
 q(u), an amortized latent layer, natural gradients on the final layer,
-the joint schedule, float32, a minibatch smaller than the data). The
-roofline shares and MFU divide this work by measured time, so the same
-work stands whatever implements it, and a later change to the program's
-own tallies moves none of these numbers.
+the joint schedule, float32; a minibatch smaller than the data, or the
+full-batch step). The roofline shares and MFU divide this work by
+measured time, so the same work stands whatever implements it, and a
+later change to the program's own tallies moves none of these numbers.
 
 Convention of the FLOP counts (the port's and its reference's): every
 matrix product counts 2abc for [a, b] x [b, c], forward and each
@@ -34,11 +34,23 @@ def gp_layers(specs: list) -> list:
     return [(s[1], s[2], s[3]) for s in specs if s[0] == "G"]
 
 
+def step_rows(dataset: dict, minibatch_size: int) -> tuple:
+    """(rows, full) of a training step: the rows it computes, its
+    minibatch or every training row where the minibatch is at least that
+    many, and whether it is then the full-batch step."""
+    n_train = int(dataset["train_share"] * dataset["N"])
+    return min(minibatch_size, n_train), minibatch_size >= n_train
+
+
 def train_step_flops(specs: list, encoder_hidden, d_y: int, M: int, K: int,
-                     B: int) -> int:
+                     B: int, full: bool = False) -> int:
     """FLOPs of one joint IW training step (value and gradient of every
     parameter, and the natural-gradient update of the final layer's
-    covariance-form q(u)), at K samples of B rows."""
+    covariance-form q(u)), at K samples of B rows. `full`: the full-batch
+    step, which keeps no bf16 residual of the q-variance, so that its
+    square sum over M is elementwise work and not a product (the port's
+    count adds the backward's recomputation of the q-variance there: not
+    work the step needs, so not counted here)."""
     C = K * B
     gps = gp_layers(specs)
     f = 0
@@ -57,7 +69,8 @@ def train_step_flops(specs: list, encoder_hidden, d_y: int, M: int, K: int,
         f += 3 * 2 * M * M * C              # A = L^-1 Kuf
         f += 3 * 2 * M * C * D              # mean = A^T q_mu
         f += 3 * 2 * D * M * M * C          # q-variance
-        f += 3 * 2 * D * M * C              # its square sum (bf16 residual)
+        if not full:
+            f += 3 * 2 * D * M * C          # its square sum (bf16 residual)
         if not final and d_in != D:
             f += 2 * 2 * C * d_in * D       # the skip projection
     D = gps[-1][1]
